@@ -25,8 +25,30 @@ and prints no result):
    and twice timed. The TSV must name hap5, the SW kernel must have been
    launched by those runs, and final_vec's argmax must equal the
    `--precise` host oracle's on the same reads.
+5. euka    — a reference-free world at the real euka DB's width: 334
+   taxa (`src/MCMC.cpp:1193`'s 1/334), each a 4-haplotype graph over its
+   own random 16,384-bp backbone (40 variants, 8-bp nodes), merged over
+   disjoint node ranges and saved as euka_db.{npz,clade,bins} with 21
+   equal bins at entropy 1.5 plus a whole-range bin at 0.5 per taxon,
+   and a C>T / G>A damage profile pair; 8,000 64-bp reads of haplotype 0
+   of three taxa at 5,600 / 2,000 / 400 (70 / 25 / 5 %, the mixture of
+   `src/test.cpp:1026-1099`). `vgan_tpu_torch.cli euka --device cuda`
+   with the reference's default gates and a 10,000-step MCMC, once to
+   warm up and twice timed: each run must detect exactly the three
+   planted taxa, put their posterior medians in [0.65, 0.75],
+   [0.20, 0.30] and [0.02, 0.08], write every output file, and launch
+   the SW kernel. Then the reads mapped on the card and on the CPU
+   (every table field equal), each gather_score_hash call of the card's
+   mapping (euka's shapes: 64-row read bucket, its own window and row
+   buckets) against the plain version exactly, with both times; the
+   scorer and the MCMC on the card against the same code on the CPU
+   (rtol 1e-12; counts and detected taxa equal), and one torch.profiler
+   pass over a CLI run for the device time, the idle share and the peak
+   device memory.
 
-The second-to-last lines are the nvidia-smi line and one JSON object
+The kernels line counts the SW kernel's launches of the HaploCart and
+euka runs together (each counted from 0 just before its runs). The
+second-to-last lines are the nvidia-smi line and one JSON object
 describing the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX or of the JAX package.
@@ -48,6 +70,19 @@ N_HAPS, N_VARIANTS, BACKBONE_BP, N_READS, READ_LEN, HAP = (
 # the mapper's SW shape: a 4,096-read chunk x 8 candidates, 128-row
 # read bucket, 192-column window bucket
 MAP_B, MAP_R, MAP_W = 32768, 128, 192
+# euka: taxa, backbone bp, haplotypes and variants per taxon, bins
+EUKA_TAXA, EUKA_BP, EUKA_HAPS, EUKA_VARIANTS, EUKA_BINS = (
+    334, 16384, 4, 40, 21)
+EUKA_READ_LEN = 64
+# (taxon, reads, window of its posterior median)
+EUKA_MIX = ((17, 5600, (0.65, 0.75)), (160, 2000, (0.20, 0.30)),
+            (301, 400, (0.02, 0.08)))
+EUKA_ITER, EUKA_BURNIN = 10000, 100
+EUKA_GATES = ["--minMQ", "29", "--minFrag", "10", "--minBins", "6",
+              "--maxBins", "0", "--entropy", "1.17", "--iter", str(EUKA_ITER),
+              "--burnin", str(EUKA_BURNIN)]
+# the chain steps that run: burn-in proposals are never evaluated
+EUKA_STEPS = EUKA_ITER - EUKA_BURNIN - 1
 
 
 def log(msg: str) -> None:
@@ -357,6 +392,280 @@ def phase_e2e(dev, out_dir):
                 cli_wall_s=[r["wall_s"] for r in timed])
 
 
+# ----------------------------------------------------------------- phase 5
+def build_euka_world(out_dir):
+    """The euka DB and read mixture (see the module docstring), through
+    tests/_torch_world.py's functions over the port's synth."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import _torch_world as world
+    from vgan_tpu_torch.graph import synth
+    from vgan_tpu_torch.graph.packed import PackedGraph
+
+    n_taxa, mix = EUKA_TAXA, EUKA_MIX
+    t0 = time.perf_counter()
+    graph, ranges = world.build_euka_graph(
+        synth, PackedGraph, n_taxa=n_taxa, n_bp=EUKA_BP, n_haps=EUKA_HAPS,
+        n_variants=EUKA_VARIANTS, seed=11)
+    chunks = world.euka_bins(ranges, n_bins=EUKA_BINS, whole_bin=True)
+    euka_dir, d5, d3 = world.write_euka_db(
+        os.path.join(out_dir, "euka"), graph, ranges, EUKA_HAPS,
+        [0.03] * n_taxa, chunks)
+    fq = os.path.join(out_dir, "euka_reads.fq")
+    n_reads = len(world.write_mixture_fastq(
+        synth, graph, fq, [(t, n) for t, n, _w in mix], EUKA_HAPS,
+        read_len=EUKA_READ_LEN))
+    log(f"euka world: {n_taxa} taxa, {graph.n_paths} paths, "
+        f"{graph.n_nodes} nodes, {len(graph.node_seq_pool)} bp of node "
+        f"sequence, {n_reads} reads ({time.perf_counter() - t0:.1f} s)")
+    return euka_dir, d5, d3, fq, n_reads
+
+
+def check_euka_outputs(prefix):
+    """The planted taxa and nothing else detected, their medians in
+    their windows, and every output file written."""
+    with open(prefix + "_detected.tsv") as f:
+        rows = [l.split("\t") for l in f.read().splitlines()[1:]]
+    got = {r[0]: float(r[3]) for r in rows}
+    want = {f"Taxon{t}": w for t, _n, w in EUKA_MIX}
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"euka detected {sorted(got)}, planted "
+                             f"{sorted(want)}")
+    for name, (lo, hi) in want.items():
+        if not lo <= got[name] <= hi:
+            raise AssertionError(f"euka {name} median {got[name]} outside "
+                                 f"[{lo}, {hi}]")
+    files = [prefix + s for s in ("_abundance.tsv", "_detected.tsv",
+                                  "_coverage.tsv", "_inSize.tsv", "_5p.prof",
+                                  "_3p.prof")]
+    files += [f"{prefix}_{name}.prof" for name in want]
+    missing = [f for f in files if not os.path.exists(f)]
+    if missing:
+        raise AssertionError(f"euka outputs missing: {missing}")
+    return got
+
+
+def profile_call(fn):
+    """fn() under torch.profiler: device busy time (the sum of the
+    device's kernel, copy and memset time), its share of the wall time,
+    the six device ops that took longest, and the peak device memory."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ops = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU or getattr(
+                e, "is_user_annotation", False):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        ops.append((us, e.count, e.key))
+    busy = sum(us for us, _n, _k in ops) / 1e6
+    ops.sort(reverse=True)
+    return dict(wall_s=wall, device_busy_s=busy,
+                idle_share=(1.0 - busy / wall) if busy else None,
+                peak_mib=peak / 2**20,
+                top_ops=[[k[:80], round(us / 1e3, 3), n]
+                         for us, n, k in ops[:6]])
+
+
+def check_euka_sw_calls(calls):
+    """Each gather_score_hash call of a euka mapping (euka's own read,
+    window and row buckets) against the plain version on the same
+    inputs, exactly; kernel and plain times at the first call's shape."""
+    from vgan_tpu_torch.mapper import sw
+
+    max_err = 0.0
+    for i, (args, got) in enumerate(calls):
+        want = sw.gather_score_hash_plain(*args)
+        for nm, g, w in zip(("scores", "h1", "h2"), got, want):
+            max_err = max(max_err, _exact(
+                f"euka gather_score_hash call {i} {nm}", g, w))
+    shapes = [dict(M=a[3].shape[1], Rmax=a[1].shape[1], Wmax=a[4])
+              for a, _o in calls]
+    a = calls[0][0]
+    ms = cuda_ms(lambda: sw.gather_score_hash(*a), reps=20)
+    plain_ms = cuda_ms(lambda: sw.gather_score_hash_plain(*a), reps=2)
+    log(f"euka gather_score_hash calls {shapes}: scores and hashes equal "
+        f"to plain; at {shapes[0]} kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms")
+    return dict(max_abs_err=max_err, shapes=shapes, ms=ms, plain_ms=plain_ms)
+
+
+def compare_card_cpu(dev, euka_dir, d5, d3, fq):
+    """Map on the card and on the CPU: every field of the two tables
+    equal, and each SW kernel call of the card's mapping equal to the
+    plain version. Then score the card's table and run the MCMC on the
+    card and on the CPU: il/nl and the trace to rtol 1e-12; counts and
+    detected taxa equal."""
+    import numpy as np
+    import torch
+
+    from vgan_tpu_torch.graph.packed import PackedGraph
+    from vgan_tpu_torch.io import fastx
+    from vgan_tpu_torch.mapper import sw
+    from vgan_tpu_torch.mapper.giraffe import BatchedMapper
+    from vgan_tpu_torch.models.damage import DamageModel
+    from vgan_tpu_torch.pipelines import euka as ek
+    from vgan_tpu_torch.pipelines.euka_runner import (
+        abundance_mcmc_from_result)
+
+    prefix = os.path.join(euka_dir, "euka_db")
+    clades = ek.load_clade_info(prefix + ".clade")
+    chunks = ek.load_clade_chunks(prefix + ".bins")
+    graph = PackedGraph.load(prefix + ".npz")
+    reads = fastx.read_fastq(fq)
+    mapper = BatchedMapper(graph, k=20, w=10, device=dev)
+    # the first mapping of a freshly loaded graph builds its lazy caches
+    # (the oriented adjacency among them), as every CLI run does; the
+    # second finds them built, and keeps each SW call's inputs and output
+    kernel, calls = sw.gather_score_hash, []
+
+    def keeping(*args):
+        out = kernel(*args)
+        calls.append((args, out))
+        return out
+
+    map_s = []
+    for i in range(2):
+        sw.gather_score_hash = keeping if i else kernel
+        try:
+            t0 = time.perf_counter()
+            table = mapper.map_reads_table(reads)
+            map_s.append(time.perf_counter() - t0)
+        finally:
+            sw.gather_score_hash = kernel
+    torch.cuda.synchronize()
+    sw_check = check_euka_sw_calls(calls)
+    t0 = time.perf_counter()
+    on_cpu = BatchedMapper(graph, k=20, w=10, device="cpu").map_reads_table(
+        reads)
+    map_cpu_s = time.perf_counter() - t0
+    for f in ("score", "identity", "mq", "nmap", "m_node", "m_off", "e_from",
+              "e_to"):
+        if not np.array_equal(getattr(table, f), getattr(on_cpu, f)):
+            raise AssertionError(f"euka mapping card vs cpu: {f} differs")
+    if table.eseq != on_cpu.eseq:
+        raise AssertionError("euka mapping card vs cpu: eseq differs")
+    log(f"euka mapping: the card's table equals the CPU's field for field "
+        f"({table.n} reads; cpu {map_cpu_s:.2f} s)")
+    dm = DamageModel.from_profiles(d5, d3)
+    out = {}
+    for d in (dev, "cpu"):
+        sc = ek.EukaScorer(graph, clades, chunks, damage=dm, device=d)
+        seen = []
+        score_arrays = sc._score_arrays
+
+        def recording(*arrays, _f=score_arrays, _seen=seen):
+            il_nl = _f(*arrays)
+            _seen.append(il_nl)
+            return il_nl
+
+        sc._score_arrays = recording
+        res = sc.score_table(table)
+        out[str(d)] = (res, np.concatenate([x[0] for x in seen]),
+                       np.concatenate([x[1] for x in seen]))
+    (rc, ilc, nlc), (rh, ilh, nlh) = out[str(dev)], out["cpu"]
+    errs = [float(np.max(np.abs(a - b) / np.abs(b)))
+            for a, b in ((ilc, ilh), (nlc, nlh))]
+    if max(errs) > 1e-12:
+        raise AssertionError(f"euka scorer card vs cpu: rel err {errs}")
+    if not np.array_equal(rc.counts, rh.counts) or rc.detected != rh.detected:
+        raise AssertionError("euka scorer card vs cpu: counts/detected differ")
+    det = rc.detected
+    kw = dict(n_iter=EUKA_ITER, burnin=EUKA_BURNIN)
+    t0 = time.perf_counter()
+    mc = abundance_mcmc_from_result(rc, device=dev, **kw)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mh = abundance_mcmc_from_result(rc, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    trace_err = float(np.max(np.abs(mc.samples - mh.samples) / mh.samples))
+    if trace_err > 1e-12 or mc.samples.shape != (EUKA_STEPS, len(det)):
+        raise AssertionError(f"MCMC card vs cpu: rel err {trace_err}, "
+                             f"shape {mc.samples.shape}")
+    log(f"mapping {table.n} reads on the card with a fresh graph "
+        f"{map_s[0]:.3f} s, again with its caches built {map_s[1]:.3f} s")
+    log(f"card vs cpu: {table.n} reads, il/nl max rel err {errs[0]:.3g} / "
+        f"{errs[1]:.3g}, counts and detected {det} equal; MCMC trace "
+        f"{mc.samples.shape} max rel err {trace_err:.3g} (card "
+        f"{card_s:.2f} s, cpu {cpu_s:.2f} s)")
+    return dict(il_nl_rel_err=max(errs), mcmc_rel_err=trace_err,
+                mcmc_card_s=card_s, mcmc_cpu_s=cpu_s, map_cold_s=map_s[0],
+                map_warm_s=map_s[1], map_cpu_s=map_cpu_s,
+                sw=sw_check), rc
+
+
+def phase_euka(dev, out_dir):
+    from vgan_tpu_torch import cli
+    from vgan_tpu_torch.mapper import batch_map, sw
+    from vgan_tpu_torch.pipelines.euka_runner import (
+        abundance_mcmc_from_result)
+    from vgan_tpu_torch.utils import profiling
+
+    euka_dir, d5, d3, fq, n_reads = build_euka_world(out_dir)
+    prefix = os.path.join(out_dir, "euka_out")
+    argv = (["euka", "--euka_dir", euka_dir, "-fq1", fq, "-o", prefix,
+             "--deam5p", d5, "--deam3p", d3, "--device", str(dev),
+             "--profile"] + EUKA_GATES)
+    profiling.enable()
+    runs = []
+    sw.reset_launches()
+    for i in range(3):  # one warm-up run, two timed
+        for f in os.listdir(out_dir):
+            if f.startswith("euka_out_"):
+                os.remove(os.path.join(out_dir, f))
+        profiling.PROFILER.stages.clear()
+        batch_map.reset_stage_times()
+        before = sw.LAUNCHES["gather_score_hash"]
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise AssertionError("cli euka failed")
+        wall = time.perf_counter() - t0
+        if sw.LAUNCHES["gather_score_hash"] <= before:
+            raise AssertionError(f"euka run {i} launched no SW kernel")
+        medians = check_euka_outputs(prefix)
+        ms = profiling.PROFILER.stages["map+score"].seconds
+        mc = profiling.PROFILER.stages["mcmc"].seconds
+        runs.append(dict(wall_s=wall, map_score_s=ms, mcmc_s=mc,
+                         stages=dict(batch_map.STAGE_TIMES)))
+        log(f"euka run {i} ({'warm-up' if i == 0 else 'timed'}): "
+            f"{wall:.2f} s wall, map+score {ms:.3f} s = "
+            f"{n_reads / ms:.0f} reads/s, mcmc {mc:.3f} s = "
+            f"{EUKA_STEPS / mc:.0f} iterations/s; medians "
+            + json.dumps(medians) + "; mapper stages "
+            + json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                          for k, v in batch_map.STAGE_TIMES.items()}))
+    launches = dict(sw.LAUNCHES)
+    log(f"euka: detected exactly the planted taxa in all runs; kernel "
+        f"launches in the 3 runs: {launches}")
+    cmp, res = compare_card_cpu(dev, euka_dir, d5, d3, fq)
+
+    def cli_run():
+        if cli.main(argv) != 0:
+            raise AssertionError("profiled cli euka failed")
+
+    prof = dict(cli_run=profile_call(cli_run),
+                mcmc=profile_call(lambda: abundance_mcmc_from_result(
+                    res, n_iter=EUKA_ITER, burnin=EUKA_BURNIN, device=dev)))
+    log("euka profiled: " + json.dumps(prof))
+    timed = runs[1:]
+    return dict(launches=launches, runs=runs, compare=cmp, profile=prof,
+                reads_per_s=[n_reads / r["map_score_s"] for r in timed],
+                mcmc_iters_per_s=[EUKA_STEPS / r["mcmc_s"] for r in timed],
+                cli_wall_s=[r["wall_s"] for r in timed])
+
+
 # ----------------------------------------------------------------- main
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "vgan_tpu_torch")):
@@ -381,18 +690,32 @@ def main() -> int:
         e2e = phase_e2e(dev, tmp)
     log(f"e2e: {', '.join(f'{x:.0f}' for x in e2e['reads_per_s'])} reads/s "
         f"(map+score, {N_READS} reads, {N_HAPS} paths) on {smi}")
+    with tempfile.TemporaryDirectory(prefix="vgan_smoke_euka_") as tmp:
+        eu = phase_euka(dev, tmp)
+    log(f"euka: euka_realdb_e2e_reads_per_s "
+        f"{', '.join(f'{x:.0f}' for x in eu['reads_per_s'])}; "
+        f"euka_mcmc_iters_per_s "
+        f"{', '.join(f'{x:.0f}' for x in eu['mcmc_iters_per_s'])} "
+        f"({EUKA_TAXA} taxa) on {smi}")
     log("summary " + json.dumps(dict(
         builds_s=builds, kernels=k, e2e_reads_per_s=e2e["reads_per_s"],
         e2e_cli_wall_s=e2e["cli_wall_s"],
-        mapper_stage_s=[r["stages"] for r in e2e["runs"]])))
+        mapper_stage_s=[r["stages"] for r in e2e["runs"]],
+        euka_realdb_e2e_reads_per_s=eu["reads_per_s"],
+        euka_mcmc_iters_per_s=eu["mcmc_iters_per_s"],
+        euka_cli_wall_s=eu["cli_wall_s"],
+        euka_mapper_stage_s=[r["stages"] for r in eu["runs"]],
+        euka_card_vs_cpu=eu["compare"], euka_profile=eu["profile"])))
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "gather_score_hash_kernel",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": e2e["launches"]["gather_score_hash"],
-        "max_abs_err": k["max_abs_err"],
+        "launches": (e2e["launches"]["gather_score_hash"]
+                     + eu["launches"]["gather_score_hash"]),
+        "max_abs_err": max(k["max_abs_err"],
+                           eu["compare"]["sw"]["max_abs_err"]),
         "ms": k["gsh_ms"],
         "plain_ms": k["gsh_plain_ms"],
     }]}))

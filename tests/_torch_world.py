@@ -39,3 +39,178 @@ def build(synth, out_dir, n_bp=N_BP, n_haps=N_HAPS, n_variants=N_VARIANTS,
     fq = os.path.join(str(out_dir), "reads.fq")
     write_fastq(fq, reads)
     return graph, db_dir, fq, reads
+
+
+# ------------------------------------------------------------ euka worlds
+# C>T at the 5' end and G>A at the 3' end, by distance from the end
+# (a synthetic aDNA damage profile); every other substitution 0
+DEAM_RATES = (0.30, 0.15, 0.08, 0.04, 0.02)
+PROF_HEADER = "A>C\tA>G\tA>T\tC>A\tC>G\tC>T\tG>A\tG>C\tG>T\tT>A\tT>C\tT>G\n"
+
+
+def merge_graphs(packed_cls, graphs):
+    """Concatenate disjoint graphs into one (disjoint node-id ranges),
+    like euka_db's per-taxon node regions; tests/test_euka_e2e.py's
+    _merge_graphs, for either package's PackedGraph. Returns (graph,
+    [(first_id, last_id)] per graph)."""
+    pools, offs, paths_n, paths_r, names = [], [], [], [], []
+    edges_f, edges_fr, edges_t, edges_tr = [], [], [], []
+    node_base = 0
+    pool_base = 0
+    ranges = []
+    for g in graphs:
+        pools.append(g.node_seq_pool)
+        offs.append(g.node_off[1:] + pool_base)
+        for j in range(g.n_paths):
+            names.append(g.path_names[j])
+            paths_n.append(g.path_steps_node[j] + node_base)
+            paths_r.append(g.path_steps_rev[j])
+        edges_f.append(g.edge_from + node_base)
+        edges_fr.append(g.edge_from_rev)
+        edges_t.append(g.edge_to + node_base)
+        edges_tr.append(g.edge_to_rev)
+        ranges.append((node_base + 1, node_base + g.n_nodes))  # 1-based ids
+        node_base += g.n_nodes
+        pool_base += len(g.node_seq_pool)
+    node_off = np.concatenate([np.zeros(1, np.int64)] + offs).astype(np.int64)
+    support = np.zeros((node_base, len(names)), dtype=bool)
+    for j, sn in enumerate(paths_n):
+        support[sn, j] = True
+    return (
+        packed_cls(
+            min_id=1,
+            node_seq_pool=np.concatenate(pools),
+            node_off=node_off,
+            edge_from=np.concatenate(edges_f),
+            edge_from_rev=np.concatenate(edges_fr),
+            edge_to=np.concatenate(edges_t),
+            edge_to_rev=np.concatenate(edges_tr),
+            path_names=names,
+            path_steps_node=paths_n,
+            path_steps_rev=paths_r,
+            path_support=support,
+        ),
+        ranges,
+    )
+
+
+def build_euka_graph(synth, packed_cls, n_taxa=3, n_bp=3000, n_haps=2,
+                     n_variants=8, seed=5):
+    """Taxon t is a haplotype graph over its own random backbone (drawn
+    in turn from one generator seeded with `seed`; graph seed 20 + t),
+    paths tax{t}_h0.., merged over disjoint node ranges (the 3-taxon
+    world of tests/test_euka_e2e.py with the defaults)."""
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for t in range(n_taxa):
+        codes = rng.integers(0, 4, size=n_bp)
+        seq = np.frombuffer(b"ACGT", dtype=np.uint8)[codes].tobytes().decode()
+        g, _ = synth.build_haplotype_graph(
+            seq, n_haplotypes=n_haps, n_variants=n_variants, seed=20 + t,
+            hap_names=[f"tax{t}_h{j}" for j in range(n_haps)],
+        )
+        graphs.append(g)
+    return merge_graphs(packed_cls, graphs)
+
+
+def euka_bins(ranges, n_bins=8, whole_bin=False):
+    """Per taxon: n_bins equal node-range bins at entropy 1.5, plus (with
+    whole_bin) a trailing whole-range bin at 0.5 that detection ignores
+    (bench.py's real-DB layout)."""
+    chunks = []
+    for lo, hi in ranges:
+        bounds = np.linspace(lo, hi, n_bins + 1).astype(int)
+        row = [(int(bounds[i]), int(bounds[i + 1]), 1.5) for i in range(n_bins)]
+        if whole_bin:
+            row.append((lo, hi, 0.5))
+        chunks.append(row)
+    return chunks
+
+
+def write_euka_db(out_dir, graph, ranges, n_haps, dists, chunks,
+                  prefix="euka_db"):
+    """<out_dir>/<prefix>.{npz,clade,bins} plus the deam5p/deam3p
+    profiles; returns (euka_dir, deam5p, deam3p)."""
+    d = str(out_dir)
+    os.makedirs(d, exist_ok=True)
+    graph.save(os.path.join(d, prefix + ".npz"))
+    with open(os.path.join(d, prefix + ".clade"), "w") as f:
+        for t, (lo, hi) in enumerate(ranges):
+            f.write(f"{t} Taxon{t} {dists[t]} {n_haps} {lo} {hi}\n")
+    with open(os.path.join(d, prefix + ".bins"), "w") as f:
+        for t, row in enumerate(chunks):
+            f.write(f"Taxon{t} " + " ".join(
+                f"{lo}.0 {hi}.0 {ent}" for lo, hi, ent in row) + "\n")
+    paths = []
+    for name, col in (("deam5p.prof", 5), ("deam3p.prof", 6)):
+        path = os.path.join(d, name)
+        with open(path, "w") as f:
+            f.write(PROF_HEADER)
+            for v in DEAM_RATES:
+                row = ["0"] * 12
+                row[col] = repr(v)
+                f.write("\t".join(row) + "\n")
+        paths.append(path)
+    return d, paths[0], paths[1]
+
+
+def write_mixture_fastq(synth, graph, path, mix, n_haps, read_len=80,
+                        seed=40):
+    """Reads of haplotype 0 of each (taxon, n_reads) in `mix`, named
+    t<taxon>_r<i>, as FASTQ."""
+    reads = []
+    for i, (t, n) in enumerate(mix):
+        for r in synth.sample_reads(graph, t * n_haps, n, read_len=read_len,
+                                    seed=seed + i):
+            r.name = f"t{t}_{r.name}"
+            reads.append(r)
+    write_fastq(path, reads)
+    return reads
+
+
+def _revcomp(s: str) -> str:
+    return s[::-1].translate(str.maketrans("ACGT", "TGCA"))
+
+
+def write_pairs(graph, fq1, fq2, interleaved, path_idx, n_pairs,
+                frag_len=200, read_len=64, seed=0):
+    """Mate pairs of a fragment of one path (read 1 forward, read 2 the
+    reverse complement of the fragment's end; tests/test_mapper.py's
+    _make_pairs) as two FASTQs and one interleaved FASTQ."""
+    rng = np.random.default_rng(seed)
+    recs1, recs2 = [], []
+    for pi in ([path_idx] if isinstance(path_idx, int) else path_idx):
+        seq = graph.path_seq(pi)
+        for i in range(n_pairs):
+            start = int(rng.integers(0, len(seq) - frag_len))
+            frag = seq[start : start + frag_len]
+            q = "".join(chr(33 + int(x))
+                        for x in rng.integers(25, 40, size=read_len))
+            recs1.append((f"p{pi}_{i}/1", frag[:read_len], q))
+            recs2.append((f"p{pi}_{i}/2", _revcomp(frag[-read_len:]), q))
+    for path, recs in ((fq1, recs1), (fq2, recs2),
+                       (interleaved, [x for ab in zip(recs1, recs2)
+                                      for x in ab])):
+        with open(path, "w") as f:
+            for name, s, q in recs:
+                f.write(f"@{name}\n{s}\n+\n{q}\n")
+
+
+def write_gfa(graph, path):
+    """S/L/P lines of a PackedGraph (node ids min_id + index)."""
+    m = graph.min_id
+    with open(path, "w") as f:
+        f.write("H\tVN:Z:1.0\n")
+        for i in range(graph.n_nodes):
+            codes = graph.node_seq_pool[graph.node_off[i]:graph.node_off[i + 1]]
+            f.write(f"S\t{i + m}\t"
+                    f"{np.frombuffer(b'ACGTN-SN', np.uint8)[codes].tobytes().decode()}\n")
+        for a, ar, b, br in zip(graph.edge_from, graph.edge_from_rev,
+                                graph.edge_to, graph.edge_to_rev):
+            f.write(f"L\t{a + m}\t{'-' if ar else '+'}\t{b + m}\t"
+                    f"{'-' if br else '+'}\t0M\n")
+        for name, sn, sr in zip(graph.path_names, graph.path_steps_node,
+                                graph.path_steps_rev):
+            steps = ",".join(f"{n + m}{'-' if r else '+'}"
+                             for n, r in zip(sn, sr))
+            f.write(f"P\t{name}\t{steps}\t*\n")

@@ -1,6 +1,7 @@
 """CUDA kernels of the port (csrc/sw.cu) against their plain torch
-versions, on the card. Marked `cuda`: they skip where
-torch.cuda.is_available() is false. This file imports neither jax nor
+versions, and the device paths of the mapper, the euka scorer and the
+abundance MCMC against the same code on the CPU, on the card. Marked
+`cuda`: they skip where torch.cuda.is_available() is false. This file imports neither jax nor
 vgan_tpu, so it also runs where jax is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -100,3 +101,129 @@ def test_mapper_on_card_equals_cpu(dev, tmp_path):
         np.testing.assert_array_equal(getattr(on_card, f),
                                       getattr(on_cpu, f), err_msg=f)
     assert on_card.eseq == on_cpu.eseq
+
+
+def _euka_world(tmp_path):
+    import _torch_world as world
+    from vgan_tpu_torch.graph import synth
+    from vgan_tpu_torch.graph.packed import PackedGraph
+
+    graph, ranges = world.build_euka_graph(synth, PackedGraph)
+    _d, d5, d3 = world.write_euka_db(
+        tmp_path, graph, ranges, 2, [0.03, 0.05, 0.07],
+        world.euka_bins(ranges))
+    reads = world.write_mixture_fastq(synth, graph, tmp_path / "r.fq",
+                                      [(0, 140), (1, 40), (2, 20)], 2)
+    return graph, d5, d3, reads
+
+
+def test_euka_mapper_on_card_equals_cpu(dev, tmp_path, monkeypatch):
+    """euka's 64-bp reads (a 64-row read bucket): each gather_score_hash
+    call of the card's mapping equal to the plain version on its inputs,
+    and the card's table equal to the CPU's field for field."""
+    import _torch_world as world
+    from vgan_tpu_torch.graph import synth
+    from vgan_tpu_torch.graph.packed import PackedGraph
+    from vgan_tpu_torch.mapper import sw
+    from vgan_tpu_torch.mapper.giraffe import BatchedMapper
+
+    graph, _ranges = world.build_euka_graph(synth, PackedGraph)
+    reads = world.write_mixture_fastq(synth, graph, tmp_path / "r.fq",
+                                      [(0, 140), (1, 40), (2, 20)], 2,
+                                      read_len=64)
+    kernel, calls = sw.gather_score_hash, []
+
+    def keeping(*args):
+        out = kernel(*args)
+        calls.append((args, out))
+        return out
+
+    monkeypatch.setattr(sw, "gather_score_hash", keeping)
+    on_card = BatchedMapper(graph, k=20, w=10, device=dev).map_reads_table(
+        reads, chunk=64)
+    monkeypatch.setattr(sw, "gather_score_hash", kernel)
+    torch.cuda.synchronize()
+    assert len(calls) == 4
+    for args, got in calls:
+        assert args[1].shape[1] == 64
+        for g, w in zip(got, sw.gather_score_hash_plain(*args)):
+            assert g.dtype == w.dtype
+            assert torch.equal(g, w)
+    on_cpu = BatchedMapper(graph, k=20, w=10, device="cpu").map_reads_table(
+        reads, chunk=64)
+    for f in ("score", "identity", "mq", "nmap", "m_node", "m_off", "e_from",
+              "e_to"):
+        np.testing.assert_array_equal(getattr(on_card, f),
+                                      getattr(on_cpu, f), err_msg=f)
+    assert on_card.eseq == on_cpu.eseq
+
+
+def test_euka_scorer_on_card_equals_cpu(dev, tmp_path):
+    """il/nl of the per-base scorer to rtol 1e-12; counts and detected
+    taxa equal (the tolerance of chip_smoke.py's euka phase)."""
+    from vgan_tpu_torch.mapper import sw
+    from vgan_tpu_torch.mapper.giraffe import BatchedMapper
+    from vgan_tpu_torch.models.damage import DamageModel
+    from vgan_tpu_torch.pipelines import euka as ek
+
+    graph, d5, d3, reads = _euka_world(tmp_path)
+    clades = ek.load_clade_info(str(tmp_path / "euka_db.clade"))
+    chunks = ek.load_clade_chunks(str(tmp_path / "euka_db.bins"))
+    sw.reset_launches()
+    table = BatchedMapper(graph, k=20, w=10, device=dev).map_reads_table(
+        reads)
+    assert sw.LAUNCHES["gather_score_hash"] >= 1
+    dm = DamageModel.from_profiles(d5, d3)
+    res = {}
+    for d in (dev, "cpu"):
+        sc = ek.EukaScorer(graph, clades, chunks, damage=dm, device=d)
+        res[str(d)] = sc.score_table(table, min_bins=4)
+    card, cpu = res[str(dev)], res["cpu"]
+    np.testing.assert_array_equal(card.counts, cpu.counts)
+    assert card.detected == cpu.detected == [0, 1, 2]
+    for a, b in zip(card.clade_like, cpu.clade_like):
+        np.testing.assert_allclose(a, b, rtol=1e-12)
+
+
+def test_euka_score_batch_on_card_equals_cpu(dev):
+    from vgan_tpu_torch.models.damage import DamageModel
+    from vgan_tpu_torch.pipelines import euka as ek
+
+    rng = np.random.default_rng(4)
+    B, L = 4096, 96
+    g = rng.integers(0, 8, size=(B, L)).astype(np.int32)
+    r = np.where(rng.random((B, L)) < 0.7, g,
+                 rng.integers(0, 8, size=(B, L))).astype(np.int32)
+    arrays = (g, r, rng.integers(0, 121, size=(B, L)).astype(np.int32),
+              rng.integers(-30, 1100, size=(B, L)).astype(np.int32),
+              rng.integers(1, 1001, size=B).astype(np.int32),
+              rng.random(B) * 0.2,
+              np.arange(L)[None, :] < rng.integers(0, L + 1, size=B)[:, None])
+    dm = DamageModel.none()
+    dm.sub5p[:5, 1, 1] -= 0.3
+    dm.sub5p[:5, 1, 3] += 0.3
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        s5, s3 = dm.tables(d)
+        out[d.type] = ek.score_batch(
+            *(torch.from_numpy(a).to(d) for a in arrays), s5, s3,
+            torch.from_numpy(ek.phred.qscore_vec()).to(d),
+            torch.from_numpy(ek.BASE_FREQ_LOG).to(d),
+            torch.from_numpy(ek.T_T_RATIO).to(d))
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-12)
+
+
+def test_run_mcmc_on_card_equals_cpu(dev):
+    """One draw_noise for both: the recorded trace to rtol 1e-12."""
+    from vgan_tpu_torch.infer.abundance_mcmc import run_mcmc
+
+    n = np.array([5600, 2000, 400])
+    slog = np.array([5600 * np.log(0.95), 2000 * np.log(0.9),
+                     400 * np.log(0.85)])
+    init = np.array([0.7, 0.25, 0.05])
+    kw = dict(n_iter=3000, burnin=100, seed=5)
+    card = run_mcmc(n, slog, init, device=dev, **kw)
+    cpu = run_mcmc(n, slog, init, device="cpu", **kw)
+    np.testing.assert_allclose(card.samples, cpu.samples, rtol=1e-12)
+    np.testing.assert_allclose(card.estimate, cpu.estimate, rtol=1e-12)

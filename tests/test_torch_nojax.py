@@ -34,12 +34,24 @@ _g, db_dir, fq, _reads = world.build(synth, out, n_bp=1500, n_haps=8,
 tsv = os.path.join(out, "hc.tsv")
 assert cli.main(["haplocart", "--db", db_dir, "-fq1", fq, "-o", tsv,
                  "--device", "cpu"]) == 0
+from vgan_tpu_torch.graph.packed import PackedGraph
+graph, ranges = world.build_euka_graph(synth, PackedGraph, n_bp=1500)
+edir, _d5, _d3 = world.write_euka_db(
+    os.path.join(out, "edb"), graph, ranges, 2, [0.03] * 3,
+    world.euka_bins(ranges, n_bins=4))
+efq = os.path.join(out, "euka.fq")
+world.write_mixture_fastq(synth, graph, efq, [(0, 60), (1, 30)], 2)
+eout = os.path.join(out, "eu")
+assert cli.main(["euka", "--euka_dir", edir, "-fq1", efq, "-o", eout,
+                 "--minBins", "2", "--iter", "200", "--burnin", "10",
+                 "--device", "cpu"]) == 0
 leaked = [m for m in sys.modules
           if (m == "jax" or m.startswith(("jax.", "vgan_tpu.")))
           and sys.modules[m] is not None]
 assert not leaked, leaked
 print("MODULES", len(names))
 print(open(tsv).read())
+print(open(eout + "_detected.tsv").read())
 """
 
 
@@ -54,6 +66,11 @@ def test_port_runs_without_jax(tmp_path):
     lines = [l for l in r.stdout.splitlines() if "\t" in l]
     assert lines[0] == "#sample\tpredicted haplogroup\treads"
     assert lines[1].split("\t")[1] == "hap5"
+    # euka's detected taxa, with MCMC estimates and their intervals
+    det = [l.split("\t") for l in lines if l.startswith("Taxon")]
+    assert [d[0] for d in det] == ["Taxon0", "Taxon1"]
+    assert all(d[1] == "yes" and len(d) == 8 for d in det)
+    assert 0.5 < float(det[0][3]) < 0.85
 
 
 def test_no_jax_or_vgan_tpu_imports_in_port():

@@ -1,12 +1,18 @@
 """vgan_tpu_torch — the PyTorch / CUDA port of vgan_tpu.
 
 A second package beside the JAX one (`vgan_tpu/`, the reference). It
-runs the single-end HaploCart main path on one NVIDIA H100:
+runs HaploCart, euka and gam2prof on one NVIDIA H100. HaploCart's main
+path:
 
   FASTQ -> minimizer seeding (C++) -> batched Smith-Waterman scoring
   (hand-written CUDA kernel, csrc/sw.cu) -> native finalize (C++) ->
   columnar filter/dedup/reconstruct -> f64 likelihood scorer (torch)
   -> argmax haplogroup.
+
+euka maps the same way, scores each read under two per-base models
+(f64 torch ops, pipelines/euka.py), detects taxa by bin coverage and
+samples abundances with a Metropolis-Hastings chain on the device
+(infer/abundance_mcmc.py).
 
 Rules the package keeps:
 

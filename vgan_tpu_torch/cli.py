@@ -1,16 +1,23 @@
-"""Command line of the PyTorch / CUDA port (the `haplocart` subcommand).
+"""Command line of the PyTorch / CUDA port.
 
     python -m vgan_tpu_torch.cli haplocart --db <dir> -fq1 reads.fq \\
         -o out.tsv [--device cuda|cpu]
+    python -m vgan_tpu_torch.cli euka --euka_dir <dir> -fq1 reads.fq \\
+        -o out_prefix [--device cuda|cpu]
+    python -m vgan_tpu_torch.cli gam2prof --euka_dir <dir> -g in.gam \\
+        -o out_prefix
+    python -m vgan_tpu_torch.cli version
 
-The flags are vgan_tpu.cli's `haplocart` flags (the reference's manual
-single-dash style, `src/HaploCart.cpp:87-209`), without `--devices`
-and with `--device`: where the mapper's Smith-Waterman kernel and the
-likelihood scorer run. It defaults to `cuda`, and asking for CUDA where
-there is none raises; `--device cpu` runs the plain torch versions.
+The flags are vgan_tpu.cli's (the reference's manual single-dash style,
+`src/HaploCart.cpp:87-209`, `src/Euka.cpp:193-345`), without `--devices`
+and with `--device`: where the mapper's Smith-Waterman kernel, the
+likelihood scorers and euka's abundance MCMC run. It defaults to
+`cuda`, and asking for CUDA where there is none raises; `--device cpu`
+runs the plain torch versions. `gam2prof` runs on the host only.
 """
 from __future__ import annotations
 
+import os
 import sys
 from typing import List
 
@@ -56,8 +63,12 @@ def main(argv: List[str] | None = None) -> int:
         return 0
     if cmd == "haplocart":
         return cmd_haplocart(rest)
-    print(f"unknown subcommand {cmd} (the port runs haplocart only)",
-          file=sys.stderr)
+    if cmd == "euka":
+        return cmd_euka(rest)
+    if cmd == "gam2prof":
+        return cmd_gam2prof(rest)
+    print(f"unknown subcommand {cmd} (the port runs haplocart, euka and "
+          "gam2prof)", file=sys.stderr)
     return 1
 
 
@@ -121,6 +132,285 @@ def cmd_haplocart(args: List[str]) -> int:
 
     PROFILER.report()
     return 0
+
+
+def cmd_euka(args: List[str]) -> int:
+    from .io import fastx, gam as gamio
+    from .mapper.batch_map import table_from_alignments
+    from .mapper.giraffe import BatchedMapper as Mapper
+    from .models.damage import DamageModel
+    from .pipelines import euka as ek
+    from .pipelines.euka_runner import abundance_mcmc_from_result, write_outputs
+    from .utils.device import resolve_device
+    from .utils.profiling import PROFILER
+
+    euka_dir = ""
+    dbprefix = "euka_db"
+    fq1 = fq2 = gamfile = ""
+    interleaved = False
+    out = "euka_output"
+    n_iter, burnin = 10000, 100
+    min_mq, min_frag, min_bins, max_bins = 29, 10, 6, 0
+    entropy = 1.17
+    deam5p = deam3p = ""
+    run_mcmc_flag = True
+    ltp = 5
+    out_frag = False
+    out_group = ""
+    k, w = 20, 10
+    safari = False
+    checkpoint_path = None
+    checkpoint_every = 100000
+    device = "cuda"
+    i = 0
+    while i < len(args):
+        a = args[i]
+        if a == "--euka_dir":
+            euka_dir = _take(args, i); i += 2
+        elif a == "--checkpoint":
+            # resumable abundance MCMC: snapshots to <path>.npz;
+            # rerunning the same command continues from the snapshot
+            checkpoint_path = _take(args, i); i += 2
+        elif a == "--checkpoint-every":
+            checkpoint_every = int(_take(args, i)); i += 2
+        elif a == "--dbprefix":
+            dbprefix = _take(args, i); i += 2
+        elif a == "-fq1":
+            fq1 = _take(args, i); i += 2
+        elif a == "-fq2":
+            fq2 = _take(args, i); i += 2
+        elif a == "-g":
+            gamfile = _take(args, i); i += 2
+        elif a == "-i":
+            interleaved = True; i += 1
+        elif a == "-o":
+            out = _take(args, i); i += 2
+        elif a == "--iter":
+            n_iter = int(_take(args, i)); i += 2
+        elif a == "--burnin":
+            burnin = int(_take(args, i)); i += 2
+        elif a == "--minMQ":
+            min_mq = int(_take(args, i)); i += 2
+        elif a == "--minFrag":
+            min_frag = int(_take(args, i)); i += 2
+        elif a == "--minBins":
+            min_bins = int(_take(args, i)); i += 2
+        elif a == "--maxBins":
+            max_bins = int(_take(args, i)); i += 2
+        elif a == "--entropy":
+            entropy = float(_take(args, i)); i += 2
+        elif a == "--deam5p":
+            deam5p = _take(args, i); i += 2
+        elif a == "--deam3p":
+            deam3p = _take(args, i); i += 2
+        elif a == "--no-mcmc":
+            run_mcmc_flag = False; i += 1
+        elif a == "-l":
+            ltp = int(_take(args, i)); i += 2
+        elif a == "--outFrag":
+            out_frag = True; i += 1
+        elif a == "--outGroup":
+            out_group = _take(args, i); i += 2
+        elif a == "-k":
+            k = int(_take(args, i)); i += 2
+        elif a == "-w":
+            w = int(_take(args, i)); i += 2
+        elif a in ("-S", "--SAFARI"):
+            # damage-aware RYmer seeding (functional here; the
+            # reference parses the flag but never shipped the mapper,
+            # `src/Euka.cpp:300-303`)
+            safari = True; i += 1
+        elif a == "-t":
+            _check_threads(_take(args, i), "euka"); i += 2
+        elif a == "--profile":
+            from .utils import profiling
+
+            profiling.enable(); i += 1
+        elif a == "--device":
+            device = _take(args, i); i += 2
+        else:
+            print(f"[euka] ignoring unknown flag {a}", file=sys.stderr)
+            i += 1
+    if fq1.endswith((".fa", ".fasta", ".fa.gz", ".fasta.gz")):
+        raise SystemExit("[euka] Input file must be FASTQ, not FASTA")
+    dev = resolve_device(device)
+
+    prefix = os.path.join(euka_dir, dbprefix)
+    clades = ek.load_clade_info(prefix + ".clade")
+    chunks = ek.load_clade_chunks(prefix + ".bins")
+    graph = _load_graph(prefix)
+    dm = DamageModel.from_profiles(deam5p or None, deam3p or None)
+
+    stream_reads = None
+    if gamfile:
+        with PROFILER.stage("read_gam"):
+            alignments = gamio.read_gam(gamfile)
+    else:
+        mapper = Mapper(graph, k=k, w=w, safari=safari, device=dev)
+        reads = fastx.read_fastq(fq1)
+        r2 = fastx.read_fastq(fq2) if fq2 else []
+        with PROFILER.stage("map", items=len(reads) + len(r2)):
+            if r2 and not interleaved and len(r2) == len(reads):
+                alignments = mapper.map_read_pairs(reads, r2)
+            elif interleaved and not r2 and len(reads) % 2 == 0:
+                alignments = mapper.map_read_pairs(reads[0::2], reads[1::2])
+            else:
+                # columnar path: no per-read objects; the scorer streams
+                # over the mapper's chunks so scoring overlaps mapping
+                stream_reads = reads + r2
+                alignments = []
+    scorer = ek.EukaScorer(graph, clades, chunks, damage=dm,
+                           length_to_prof=ltp, device=dev)
+    if stream_reads is not None:
+        with PROFILER.stage("map+score", items=len(stream_reads)):
+            res = scorer.score_table_stream(
+                mapper.map_table_chunks(stream_reads),
+                min_mq=min_mq, min_frag=min_frag, min_bins=min_bins,
+                max_bins=max_bins, entropy_threshold=entropy,
+            )
+    else:
+        table = table_from_alignments(alignments) if alignments else None
+        with PROFILER.stage(
+            "score",
+            items=(table.n if table is not None else len(alignments)),
+        ):
+            if table is not None:
+                res = scorer.score_table(
+                    table, min_mq=min_mq, min_frag=min_frag,
+                    min_bins=min_bins, max_bins=max_bins,
+                    entropy_threshold=entropy,
+                )
+            else:
+                res = scorer.score(
+                    alignments, min_mq=min_mq, min_frag=min_frag,
+                    min_bins=min_bins, max_bins=max_bins,
+                    entropy_threshold=entropy,
+                )
+    if out_group:
+        names = [c.name for c in clades]
+        if out_group not in names:
+            raise SystemExit("[euka] Outgroup not found in reference graph")
+        gi = names.index(out_group)
+        if gi not in res.detected:
+            # outgroup is always reported (`src/Euka.cpp:560-582,619-663`)
+            res.detected.append(gi)
+    with PROFILER.stage("mcmc"):
+        mcmc = (
+            abundance_mcmc_from_result(
+                res, n_iter=n_iter, burnin=burnin,
+                checkpoint_path=checkpoint_path,
+                checkpoint_every=checkpoint_every, device=dev,
+            )
+            if run_mcmc_flag
+            else None
+        )
+    write_outputs(res, out, mcmc, length_to_prof=ltp, out_frag=out_frag)
+    PROFILER.report()
+    return 0
+
+
+def cmd_gam2prof(args: List[str]) -> int:
+    """Replay a GAM against euka bins, emit deamination profiles
+    (`src/gam2prof.cpp:29-228`). Host only."""
+    import numpy as np
+
+    from .graph.reconstruct import reconstruct_graph_sequence
+    from .io import gam as gamio
+    from .pipelines import euka as ek
+    from .pipelines.euka_runner import _prof_rates, _write_prof
+
+    euka_dir = ""
+    dbprefix = "euka_db"
+    gamfile = ""
+    out = "gam2prof"
+    ltp = 5
+    i = 0
+    while i < len(args):
+        a = args[i]
+        if a == "--euka_dir":
+            euka_dir = _take(args, i); i += 2
+        elif a == "--dbprefix":
+            dbprefix = _take(args, i); i += 2
+        elif a == "-g":
+            gamfile = _take(args, i); i += 2
+        elif a == "-o":
+            out = _take(args, i); i += 2
+        elif a == "-l":
+            ltp = int(_take(args, i)); i += 2
+        else:
+            i += 1
+    prefix = os.path.join(euka_dir, dbprefix)
+    clades = ek.load_clade_info(prefix + ".clade")
+    chunks = ek.load_clade_chunks(prefix + ".bins")
+    graph = _load_graph(prefix)
+    baseshift = np.zeros((len(clades), 2 * ltp, 16), dtype=np.int64)
+    counts = np.zeros(len(clades), dtype=np.int64)
+    for a in gamio.iter_gam(gamfile):
+        if a.identity == 0 or not a.path.mappings:
+            continue
+        g, r, _ = reconstruct_graph_sequence(graph, a.path, a.sequence)
+        c_n, _e = ek.assign_clade(chunks, a.path.mappings[0].position.node_id)
+        ek.baseshift_update(baseshift[c_n], g, r, ltp)
+        counts[c_n] += 1
+    for i_c, clade in enumerate(clades):
+        if counts[i_c] == 0:
+            continue
+        _write_prof(
+            f"{out}_{clade.name}.prof", _prof_rates(baseshift[i_c], ltp), ltp
+        )
+        # raw 16-cell counts (`Baseshift::display_counts`,
+        # `src/baseshift.cpp:124-143`)
+        with open(f"{out}_{clade.name}.all", "w") as f:
+            hdr = (
+                "A>A\tA>C\tA>G\tA>T\tC>A\tC>C\tC>G\tC>T\tG>A\tG>C\t"
+                "G>G\tG>T\tT>A\tT>C\tT>G\tT>T\tPosition\n"
+            )
+            f.write(hdr)
+            for p_ in range(2 * ltp):
+                pos = p_ if p_ < ltp else -(2 * ltp) + p_
+                f.write(
+                    "\t".join(str(x) for x in baseshift[i_c][p_])
+                    + f"\t\t{pos}\n"
+                )
+    return 0
+
+
+# graph formats the JAX package reads and the port does not yet
+_NOT_PORTED = (".vg", ".og", ".gbz", ".gg", ".xg")
+
+
+def _load_one_graph(path: str):
+    from .graph.packed import PackedGraph
+
+    if path.endswith(".npz"):
+        return PackedGraph.load(path)
+    if path.endswith(_NOT_PORTED):
+        fmt = os.path.splitext(path)[1]
+        raise NotImplementedError(
+            f"graph format {fmt} ({path}) is not ported to vgan_tpu_torch "
+            "yet; give the DB as <prefix>.npz or <prefix>.gfa"
+        )
+    return PackedGraph.from_gfa(path)
+
+
+def _load_graph(prefix: str):
+    """Resolve a graph for a DB prefix as vgan_tpu.cli does:
+    <prefix>.{npz,gfa,vg,...}, the path itself, or a graph.{npz,gfa,...}
+    next to it. Only .npz and .gfa load; the other formats raise."""
+    exts = (".npz", ".gfa", ".vg", ".og", ".gbz", ".giraffe.gbz",
+            ".gg", ".xg")
+    if prefix.endswith(exts) and os.path.exists(prefix):
+        return _load_one_graph(prefix)
+    for ext in exts:
+        if os.path.exists(prefix + ext):
+            return _load_one_graph(prefix + ext)
+    d = os.path.dirname(prefix)
+    for name in ("graph.npz", "graph.gfa", "graph.vg", "graph.og",
+                 "graph.giraffe.gbz", "graph.gg", "graph.xg"):
+        cand = os.path.join(d, name)
+        if os.path.exists(cand):
+            return _load_one_graph(cand)
+    raise FileNotFoundError(f"no graph found for prefix {prefix}")
 
 
 if __name__ == "__main__":
