@@ -9,22 +9,42 @@ and prints no result):
 1. device  — the card's name, and its name and power limit from
    nvidia-smi; no CUDA device is an error.
 2. build   — the native host library (g++) and csrc/sw.cu (nvcc, sm_90a)
-   from the checkout's sources; seconds of each build.
+   from the checkout's sources; seconds of each build; `cuobjdump -sass`
+   of the SW library, which must show Hopper's DPX max instructions
+   (VIMNMX3, VIADDMNMX) in every instantiation of both kernels, and
+   whose DP step (the straight-line block holding the most VIMNMX3, one
+   a cell) must issue at least the integer-ALU operations a cell that
+   the bound counts; the step's operations a cell on each pipe are
+   logged.
 3. kernels — each CUDA entry point of csrc/sw.cu against its plain
    PyTorch version on the card, exact equality required (every score is
    a small integer; hashes are 32-bit integers):
      sw_scores on tests/test_sw_pallas.py's random sets (B=16, R=64,
-     W=128, seeds 0-2) and at the mapper's shape (B=32,768, R=128,
-     W=192); gather_score_hash on a random 86 MB path-code pool with both
-     strands, padding rows and int32/int64 aux. Times (CUDA events) and
-     GCUPS of kernel and plain version at the mapper's shape.
+     W=128, seeds 0-2), at the mapper's shape (B=32,768, R=128, W=192)
+     and on 1,000-bp reads (B=2,048, R=1,024, W=1,152: four bands of
+     rows); gather_score_hash on a random 86 MB path-code pool with both
+     strands, padding rows and int32/int64 aux (M=32,768), on a small
+     batch (M=1,024) and on 1,000-bp reads (M=2,048, Rmax=1,024). Each
+     shape is timed (CUDA events), kernel and plain version, beside its
+     bound (bound_ms below: the DP cells' operations on the pipe that
+     limits them, or the bytes moved over 3.35 TB/s, whichever takes
+     longer). Each shape is also timed on the device alone, its calls
+     queued behind a spin kernel so that the wrapper's host work is
+     hidden (no profiler here: once torch.profiler has traced the card,
+     every later launch of the process is slower).
 4. e2e     — a reference-free world at the real HaploCart DB's shape
    (5,179 haplotype paths over a seeded random 16,569-bp backbone, 600
    variants), saved as graph.npz; 8,000 100-bp reads of haplotype 5 as
    FASTQ; `vgan_tpu_torch.cli haplocart --device cuda` once to warm up
    and twice timed. The TSV must name hap5, the SW kernel must have been
-   launched by those runs, and final_vec's argmax must equal the
-   `--precise` host oracle's on the same reads.
+   launched by those runs, each gather_score_hash call of the warm-up
+   run must equal the plain version (and is timed beside its bound), and
+   final_vec's argmax must equal the `--precise` host oracle's on the
+   same reads. Then the mapper's object path (BatchedMapper.
+   _map_reads_obj, the oracle of the production path, whose windows go
+   through sw_scores) on 1,000 of the reads: sw_scores launched, every
+   alignment equal to the production path's, each call equal to plain
+   and timed.
 5. euka    — a reference-free world at the real euka DB's width: 334
    taxa (`src/MCMC.cpp:1193`'s 1/334), each a 4-haplotype graph over its
    own random 16,384-bp backbone (40 variants, 8-bp nodes), merged over
@@ -40,14 +60,18 @@ and prints no result):
    the SW kernel. Then the reads mapped on the card and on the CPU
    (every table field equal), each gather_score_hash call of the card's
    mapping (euka's shapes: 64-row read bucket, its own window and row
-   buckets) against the plain version exactly, with both times; the
+   buckets) against the plain version exactly, timed beside its bound; the
    scorer and the MCMC on the card against the same code on the CPU
    (rtol 1e-12; counts and detected taxa equal), and one torch.profiler
    pass over a CLI run for the device time, the idle share and the peak
    device memory.
 
-The kernels line counts the SW kernel's launches of the HaploCart and
-euka runs together (each counted from 0 just before its runs). The
+The kernels line lists both kernels: gather_score_hash_kernel's
+launches are those of the HaploCart and euka runs together, and
+sw_scores_kernel's those of the object path (each counted from 0 just
+before its runs); ms, plain_ms and the bound are at the mapper's shape
+(sw_scores: B=32,768 full-length pairs; gather_score_hash: the pool
+batch). Every timing line names the card and its power limit. The
 second-to-last lines are the nvidia-smi line and one JSON object
 describing the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -65,6 +89,29 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "vgan_tpu_torch/csrc/sw.cu"
 REPLACES = "vgan_tpu/mapper/sw_pallas.py:191"  # the pallas_call of sw_scores
+# Bound of an SW call on an H100 SXM (NVIDIA's data sheet and Hopper
+# white paper): 132 SMs at up to 1.98 GHz and 3.35 TB/s of HBM. An SM
+# issues at most 128 lane operations a clock (four sub-partitions, one
+# warp instruction a clock each); of these at most 64 go to the integer
+# ALU pipe, which alone runs compares and min/max (DPX included), while
+# the FMA pipe takes the rest of the integer adds (sm_90's VIADD) and
+# multiply-adds. A DP cell of the int32 recurrence is 9 operations:
+# 5 on the ALU pipe (the match compare; E, F and the running best as
+# one VIADDMNMX each; H as one VIMNMX3 with relu) and 4 adds (the
+# diagonal score as an add and a predicated add, E - 1, F - 1), as the
+# sm_90a SASS issues them (check_sass). A hashed window column is two
+# multiply-adds.
+SMS, CLOCK_HZ = 132, 1.98e9
+ALU_LANES, SM_LANES = 64, 128  # a clock, an SM: ALU pipe, all pipes
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_CELL, FMA_OPS_PER_CELL = 5, 4
+HASH_OPS_PER_COLUMN = 2
+# the long-read shape: 1,000-bp reads in a 1,024-row bucket (four
+# 256-row bands) and 1,152-column windows
+LONG_B, LONG_R, LONG_W, LONG_READ_LEN = 2048, 1024, 1152, 1000
+# the mapper's object path (the oracle of the production path), driven
+# on this many of HaploCart's reads
+OBJECT_PATH_READS = 1000
 N_HAPS, N_VARIANTS, BACKBONE_BP, N_READS, READ_LEN, HAP = (
     5179, 600, 16569, 8000, 100, 5)
 # the mapper's SW shape: a 4,096-read chunk x 8 candidates, 128-row
@@ -107,6 +154,104 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(cells: int, hashed_columns: int, nbytes: int):
+    """(least milliseconds on the card, "operations" or "bytes") for
+    `cells` DP cells and `hashed_columns` hashed window columns moving
+    `nbytes`: the ALU pipe's share of the operations over its 64 lanes
+    an SM, or all of them over the 128 lanes an SM issues, whichever
+    takes longer, against the bytes over the HBM rate."""
+    alu = cells * ALU_OPS_PER_CELL
+    ops = (cells * (ALU_OPS_PER_CELL + FMA_OPS_PER_CELL)
+           + hashed_columns * HASH_OPS_PER_COLUMN)
+    t_ops = max(alu / ALU_LANES, ops / SM_LANES) / (SMS * CLOCK_HZ)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def sw_work(read, win, read_len, win_len):
+    """(DP cells, hashed columns, bytes) of one sw_scores call: the
+    cells of rows 1..min(rlen, R) by columns < min(wlen, W), no hash;
+    every input read once and the [B] f32 output written once."""
+    R, W = read.shape[1], win.shape[1]
+    rows = read_len.long().clamp(0, R)
+    cols = win_len.long().clamp(0, W)
+    cells = int((rows * cols).sum())
+    return cells, 0, nbytes(read, win, read_len, win_len) + 4 * read.shape[0]
+
+
+def gsh_work(pc, rm, rl, ax, Wmax):
+    """(DP cells, hashed columns, bytes) of one gather_score_hash call.
+    Every row hashes all Wmax columns. Bytes: the live window bytes, the
+    read matrix, lengths, aux, the two power tables and the three [M]
+    outputs."""
+    M, Rmax = ax.shape[1], rm.shape[1]
+    wl = ax[2].long().clamp(0, Wmax)
+    L = rl.long()[ax[0].long()].clamp(0, Rmax)
+    cells = int((L * wl).sum())
+    moved = (int(wl.sum()) + nbytes(rm, rl, ax) + 8 * Wmax + 12 * M)
+    return cells, M * Wmax, moved
+
+
+# a spin kernel of this many cycles (>= 50 ms at the H100's <= 1.98 GHz)
+# holds the card while the host queues the calls that queued_ms times
+SPIN_CYCLES = 100_000_000
+
+
+def queued_ms(fn, reps: int):
+    """Mean device milliseconds per call of fn with the host's work
+    hidden: the calls are queued behind a spin kernel, so they run back
+    to back on the card (a call's kernel and any conversion it launches,
+    without the wrapper's host time). None if queueing outlasted the
+    spin."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queued_s = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps if queued_s < 0.04 else None
+
+
+class Clock:
+    """Times the SW wrappers at each shape beside their bound, naming the
+    card (`smi`) in every line."""
+
+    def __init__(self, smi: str):
+        self.smi = smi
+
+    def timed(self, label, fn, plain_fn, work, reps=20, plain_reps=2):
+        """Milliseconds per call of the wrapper (CUDA events), its device
+        time alone (queued_ms) and the plain version's, beside the bound
+        of `work` = (cells, hashed columns, bytes); logs one line."""
+        cells = work[0]
+        ms = cuda_ms(fn, reps=reps)
+        dev_ms = queued_ms(fn, reps)
+        plain = cuda_ms(plain_fn, reps=plain_reps)
+        bms, by = bound_ms(*work)
+        dev_txt = ("device time not measured" if dev_ms is None else
+                   f"on the device alone {dev_ms:.4f} ms = "
+                   f"{100 * bms / dev_ms:.1f} %")
+        log(f"{label}: kernel {ms:.4f} ms a call ({cells / ms / 1e6:.1f} "
+            f"GCUPS, {100 * bms / ms:.1f} % of the {bms:.4f} ms bound, "
+            f"{by}-bound; {dev_txt}), plain {plain:.3f} ms; "
+            f"{cells} cells; on {self.smi}")
+        return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, cells=cells)
+
+
 # ----------------------------------------------------------------- phase 1
 def phase_device():
     import torch
@@ -127,13 +272,99 @@ def phase_device():
 def phase_build():
     from vgan_tpu_torch import _native
 
+    libs = {}
     for name, build in (("host", _native.host_lib),
                         ("sw.cu", _native.sw_lib)):
         t0 = time.perf_counter()
-        lib = build()
+        lib = libs[name] = build()
         log(f"build {name}: {time.perf_counter() - t0:.2f} s "
             f"({os.path.relpath(lib._name, HERE)})")
-    return dict(_native.BUILD_SECONDS)
+    return dict(_native.BUILD_SECONDS), check_sass(libs["sw.cu"]._name)
+
+
+# sm_90 pipes of the opcodes a DP step issues: the integer ALU pipe (64
+# lanes an SM) and the FMA pipe (integer adds and multiply-adds); the
+# rest (shared-memory, shuffle) are neither
+ALU_PIPE = {"ISETP", "SEL", "LOP3", "PLOP3", "VIADDMNMX", "VIMNMX3",
+            "VIMNMX", "IMNMX", "IADD3", "SHF", "PRMT", "LEA", "MOV", "P2R",
+            "R2P"}
+FMA_PIPE = {"VIADD", "IMAD"}
+# opcodes that end a straight-line block
+BLOCK_ENDS = {"BRA", "BSSY", "BSYNC", "EXIT", "RET", "CALL", "WARPSYNC",
+              "BAR"}
+
+
+def step_mix(ops):
+    """Operations a DP cell on each pipe, in the straight-line block of
+    `ops` (one function's opcodes in order) that holds the most VIMNMX3:
+    a DP step's cells, one VIMNMX3 each."""
+    from collections import Counter
+
+    blocks, cur = [], []
+    for op in ops:
+        if op in BLOCK_ENDS:
+            blocks.append(cur)
+            cur = []
+        else:
+            cur.append(op)
+    blocks.append(cur)
+    step = Counter(max(blocks, key=lambda b: b.count("VIMNMX3")))
+    cells = step["VIMNMX3"]
+    alu = sum(n for op, n in step.items() if op in ALU_PIPE)
+    fma = sum(n for op, n in step.items() if op in FMA_PIPE)
+    return dict(cells=cells, alu=alu / cells, fma=fma / cells,
+                other=(sum(step.values()) - alu - fma) / cells)
+
+
+def check_sass(lib_path):
+    """`cuobjdump -sass` of the SW library: every instantiation of both
+    kernels must carry Hopper's DPX instructions (VIMNMX3, VIADDMNMX),
+    not emulated max chains, and its DP step must issue at least
+    ALU_OPS_PER_CELL integer-ALU operations a cell (else the bound is one
+    the kernel could beat). Returns the counts per kernel and the step's
+    operations a cell on each pipe."""
+    import re
+    from collections import Counter
+
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = os.path.join(cuda_home, "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    ops, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"(sw_scores_kernel|gather_score_hash_kernel)"
+                          r"ILi(\d+)E", m.group(1))
+            cur = f"{k.group(1)}<{k.group(2)}>" if k else None
+            if cur:
+                ops[cur] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                      line)
+        if cur and m:
+            ops[cur].append(m.group(1))
+    want = [f"{n}<{k}>" for n in ("sw_scores_kernel",
+                                  "gather_score_hash_kernel")
+            for k in range(1, 9)]
+    counts = {f: Counter(ops.get(f, ())) for f in want}
+    bad = [f for f in want
+           if not counts[f]["VIMNMX3"] or not counts[f]["VIADDMNMX"]]
+    if bad:
+        raise AssertionError(f"SASS without DPX max instructions: {bad}")
+    keep = ("VIMNMX3", "VIADDMNMX", "SHFL", "LDS", "REDUX")
+    summary = {f: {op: counts[f][op] for op in keep} for f in want}
+    for f in want:
+        summary[f]["step_per_cell"] = step_mix(ops[f])
+    low = [f for f in want
+           if summary[f]["step_per_cell"]["alu"] < ALU_OPS_PER_CELL]
+    if low:
+        raise AssertionError(f"DP step below {ALU_OPS_PER_CELL} ALU-pipe "
+                             f"operations a cell (restate the bound): {low}")
+    log("SASS (cuobjdump -sass): every kernel instantiation uses DPX and "
+        f"issues >= {ALU_OPS_PER_CELL} ALU-pipe operations a DP cell; "
+        "K=4: " + json.dumps({f: summary[f] for f in want if "<4>" in f}))
+    return summary
 
 
 # ----------------------------------------------------------------- phase 3
@@ -161,12 +392,12 @@ def make_batch(rng, B=16, R=64, W=128):
 
 
 def mapper_shaped_batch(rng, B, R, W, L=READ_LEN):
-    """Pairs as the mapper makes them: 100-bp reads with ~1% errors
-    planted in windows of 150..192 columns; 255-padded to R and W."""
+    """Pairs as the mapper makes them: L-bp reads with ~1% errors
+    planted in windows of L + 50 .. W columns; 255-padded to R and W."""
     import numpy as np
 
     win = rng.integers(0, 4, size=(B, W)).astype(np.int32)
-    wlen = rng.integers(150, W + 1, size=B).astype(np.int32)
+    wlen = rng.integers(L + 50, W + 1, size=B).astype(np.int32)
     win[np.arange(W)[None, :] >= wlen[:, None]] = 255
     start = rng.integers(0, wlen - L + 1)
     idx = start[:, None] + np.arange(L)[None, :]
@@ -179,24 +410,25 @@ def mapper_shaped_batch(rng, B, R, W, L=READ_LEN):
     return read, win, rlen, wlen
 
 
-def pool_batch(rng, aux_dtype, P=86_000_000, n_reads=4096, n_pad=2048):
+def pool_batch(rng, aux_dtype, P=86_000_000, n_reads=4096, n_pad=2048,
+               M=MAP_B, Rmax=MAP_R, Wmax=MAP_W, read_len=READ_LEN):
     """gather_score_hash inputs at the mapper's shape: a random path-code
     pool, reads planted in it on both strands, candidate windows around
-    the plants (and random ones), and padding rows (wlen 0)."""
+    the plants (and random ones) of read_len + 48 .. Wmax columns, and
+    padding rows (wlen 0)."""
     import numpy as np
 
-    Rmax, Wmax, M = MAP_R, MAP_W, MAP_B
     pool = rng.integers(0, 4, size=P, dtype=np.uint8)
     pool[rng.random(P) < 0.001] = 4
     comp = np.array([3, 2, 1, 0, 4], dtype=np.uint8)
-    read_lens = np.full(n_reads, READ_LEN, dtype=np.int32)
+    read_lens = np.full(n_reads, read_len, dtype=np.int32)
     plant = rng.integers(0, P - Wmax, size=n_reads)
     strand_of = rng.integers(0, 2, size=n_reads)
     reads_mat = np.full((n_reads, Rmax), 255, dtype=np.uint8)
     for i in range(n_reads):
-        seg = pool[plant[i] : plant[i] + READ_LEN].copy()
-        seg[rng.random(READ_LEN) < 0.01] = rng.integers(0, 4)
-        reads_mat[i, :READ_LEN] = comp[seg][::-1] if strand_of[i] else seg
+        seg = pool[plant[i] : plant[i] + read_len].copy()
+        seg[rng.random(read_len) < 0.01] = rng.integers(0, 4)
+        reads_mat[i, :read_len] = comp[seg][::-1] if strand_of[i] else seg
     m = M - n_pad
     aux = np.zeros((4, M), dtype=aux_dtype)
     c_read = rng.integers(0, n_reads, size=m)
@@ -205,7 +437,7 @@ def pool_batch(rng, aux_dtype, P=86_000_000, n_reads=4096, n_pad=2048):
     base = np.where(near, plant[c_read] - rng.integers(0, 48, size=m),
                     rng.integers(0, P - Wmax, size=m))
     aux[1, :m] = np.clip(base, 0, P - Wmax)
-    aux[2, :m] = rng.integers(148, Wmax + 1, size=m)
+    aux[2, :m] = rng.integers(read_len + 48, Wmax + 1, size=m)
     aux[3, :m] = np.where(near, strand_of[c_read], rng.integers(0, 2, size=m))
     return pool, reads_mat, read_lens, aux, Wmax
 
@@ -224,7 +456,11 @@ def _exact(name, got, want) -> float:
         if got.numel() else 0.0
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, clock):
+    """Both kernels against their plain versions (exactly) at every
+    shape, and timed beside their bounds: sw_scores at the timing shape
+    and at the long-read shape, gather_score_hash at the mapper's pool
+    batch, at a small batch (M=1,024) and at the long-read shape."""
     import numpy as np
     import torch
 
@@ -234,68 +470,87 @@ def phase_kernels(dev):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for a in arrays]
 
-    max_err = 0.0
-    for seed in range(3):
-        args = on_card(*make_batch(np.random.default_rng(seed)))
+    err = {"sw_scores": 0.0, "gather_score_hash": 0.0}
+
+    def check_sw(label, args):
         got = sw.sw_scores(*args)
         torch.cuda.synchronize()
-        max_err = max(max_err, _exact(f"sw_scores seed {seed}", got,
-                                      sw.sw_scores_plain(*args)))
+        err["sw_scores"] = max(err["sw_scores"], _exact(
+            f"sw_scores {label}", got, sw.sw_scores_plain(*args)))
+
+    def check_gsh(label, args):
+        got = sw.gather_score_hash(*args)
+        torch.cuda.synchronize()
+        want = sw.gather_score_hash_plain(*args)
+        for nm, g, w in zip(("scores", "h1", "h2"), got, want):
+            err["gather_score_hash"] = max(err["gather_score_hash"], _exact(
+                f"gather_score_hash {label} {nm}", g, w))
+        return got
+
+    for seed in range(3):
+        check_sw(f"seed {seed}", on_card(*make_batch(
+            np.random.default_rng(seed))))
     log("sw_scores: test_sw_pallas sets (B=16, R=64, W=128, seeds 0-2) "
         "equal to plain")
 
     rng = np.random.default_rng(42)
     B, R, W = MAP_B, MAP_R, MAP_W
-    args = on_card(*mapper_shaped_batch(rng, B, R, W))
-    got = sw.sw_scores(*args)
-    torch.cuda.synchronize()
-    max_err = max(max_err, _exact("sw_scores mapper shape", got,
-                                  sw.sw_scores_plain(*args)))
+    check_sw("mapper shape", on_card(*mapper_shaped_batch(rng, B, R, W)))
     # timing as the JAX bench defines GCUPS: full-length random pairs,
     # B*R*W cells per call
     full = on_card(rng.integers(0, 4, size=(B, R)).astype(np.int32),
                    rng.integers(0, 4, size=(B, W)).astype(np.int32),
                    np.full(B, R, np.int32), np.full(B, W, np.int32))
-    got = sw.sw_scores(*full)
-    torch.cuda.synchronize()
-    max_err = max(max_err, _exact("sw_scores full-length", got,
-                                  sw.sw_scores_plain(*full)))
-    sw_ms = cuda_ms(lambda: sw.sw_scores(*full), reps=20)
-    sw_plain_ms = cuda_ms(lambda: sw.sw_scores_plain(*full), reps=2)
-    cells = B * R * W
-    log(f"sw_scores B={B} R={R} W={W}: kernel {sw_ms:.3f} ms "
-        f"({cells / sw_ms / 1e6:.2f} GCUPS), plain {sw_plain_ms:.3f} ms "
-        f"({cells / sw_plain_ms / 1e6:.2f} GCUPS), equal")
+    check_sw("full-length", full)
+    t_sw = clock.timed(f"sw_scores B={B} R={R} W={W}",
+                       lambda: sw.sw_scores(*full),
+                       lambda: sw.sw_scores_plain(*full), sw_work(*full))
+    # long reads: past the 807-row limit of a thread-per-pair kernel
+    long_args = on_card(*mapper_shaped_batch(
+        rng, LONG_B, LONG_R, LONG_W, L=LONG_READ_LEN))
+    check_sw("long reads", long_args)
+    t_sw_long = clock.timed(
+        f"sw_scores long reads B={LONG_B} R={LONG_R} W={LONG_W}",
+        lambda: sw.sw_scores(*long_args),
+        lambda: sw.sw_scores_plain(*long_args), sw_work(*long_args),
+        plain_reps=1)
 
     gsh = {}
     for aux_dtype in (np.int32, np.int64):
         pool, reads_mat, read_lens, aux, Wmax = pool_batch(
             np.random.default_rng(7), aux_dtype)
-        pc, rm, rl, ax = on_card(pool, reads_mat, read_lens, aux)
-        got = sw.gather_score_hash(pc, rm, rl, ax, Wmax)
-        torch.cuda.synchronize()
-        want = sw.gather_score_hash_plain(pc, rm, rl, ax, Wmax)
-        for nm, g, w in zip(("scores", "h1", "h2"), got, want):
-            max_err = max(max_err, _exact(
-                f"gather_score_hash {nm} aux {np.dtype(aux_dtype).name}",
-                g, w))
-        M = aux.shape[1]
-        if float(got[0][ax[2] > 0].max()) < READ_LEN + 2:
+        args = (*on_card(pool, reads_mat, read_lens, aux), Wmax)
+        got = check_gsh(f"aux {np.dtype(aux_dtype).name}", args)
+        if float(got[0][args[3][2] > 0].max()) < READ_LEN + 2:
             raise AssertionError("gather_score_hash: planted reads not found")
         if aux_dtype is np.int32:
-            gsh = dict(M=M, Rmax=reads_mat.shape[1], Wmax=Wmax,
-                       args=(pc, rm, rl, ax, Wmax))
+            gsh["pool"] = args
     log("gather_score_hash: 86 MB pool, both strands, padding rows, "
         "int32/int64 aux: scores and hashes equal to plain")
-    a = gsh["args"]
-    g_ms = cuda_ms(lambda: sw.gather_score_hash(*a), reps=20)
-    g_plain_ms = cuda_ms(lambda: sw.gather_score_hash_plain(*a), reps=2)
-    log(f"gather_score_hash M={gsh['M']} Rmax={gsh['Rmax']} "
-        f"Wmax={gsh['Wmax']}: kernel {g_ms:.3f} ms, plain {g_plain_ms:.3f} ms")
-    return dict(max_abs_err=max_err, sw_ms=sw_ms, sw_plain_ms=sw_plain_ms,
-                sw_gcups=cells / sw_ms / 1e6,
-                sw_plain_gcups=cells / sw_plain_ms / 1e6,
-                gsh_ms=g_ms, gsh_plain_ms=g_plain_ms)
+    small = pool_batch(np.random.default_rng(8), np.int32, P=20_000_000,
+                       n_reads=1024, n_pad=100, M=1024)
+    gsh["small"] = (*on_card(*small[:4]), small[4])
+    check_gsh("small batch M=1024", gsh["small"])
+    long_pool = pool_batch(np.random.default_rng(9), np.int32,
+                           P=20_000_000, n_reads=LONG_B, n_pad=256,
+                           M=LONG_B, Rmax=LONG_R, Wmax=LONG_W,
+                           read_len=LONG_READ_LEN)
+    gsh["long"] = (*on_card(*long_pool[:4]), long_pool[4])
+    got = check_gsh(f"long reads Rmax={LONG_R}", gsh["long"])
+    if float(got[0].max()) < 0.8 * LONG_READ_LEN:
+        raise AssertionError("gather_score_hash: planted long reads not "
+                             "found")
+    t_gsh = {}
+    for key, args in gsh.items():
+        M, Rmax, Wmax = args[3].shape[1], args[1].shape[1], args[4]
+        t_gsh[key] = clock.timed(
+            f"gather_score_hash {key} M={M} Rmax={Rmax} Wmax={Wmax}",
+            lambda a=args: sw.gather_score_hash(*a),
+            lambda a=args: sw.gather_score_hash_plain(*a), gsh_work(*args),
+            plain_reps=1 if key == "long" else 2)
+    log("sw_scores and gather_score_hash: equal to plain at every shape, "
+        f"R={LONG_R} included")
+    return dict(max_abs_err=err, sw=t_sw, sw_long=t_sw_long, gsh=t_gsh)
 
 
 # ----------------------------------------------------------------- phase 4
@@ -325,7 +580,7 @@ def build_world(out_dir):
     return db_dir, fq
 
 
-def phase_e2e(dev, out_dir):
+def phase_e2e(dev, out_dir, clock):
     import numpy as np
 
     from vgan_tpu_torch import cli
@@ -337,16 +592,28 @@ def phase_e2e(dev, out_dir):
     tsv = os.path.join(out_dir, "hc.tsv")
     profiling.enable()
     runs = []
+    # the warm-up run keeps each SW kernel call's inputs and outputs
+    kernel, calls = sw.gather_score_hash, []
+
+    def keeping(*args):
+        out = kernel(*args)
+        calls.append((args, out))
+        return out
+
     sw.reset_launches()
     for i in range(3):  # one warm-up run, two timed
         if os.path.exists(tsv):
             os.remove(tsv)
         profiling.PROFILER.stages.clear()
         batch_map.reset_stage_times()
-        t0 = time.perf_counter()
-        rc = cli.main(["haplocart", "--db", db_dir, "-fq1", fq, "-o", tsv,
-                       "--device", str(dev), "--profile"])
-        wall = time.perf_counter() - t0
+        sw.gather_score_hash = kernel if i else keeping
+        try:
+            t0 = time.perf_counter()
+            rc = cli.main(["haplocart", "--db", db_dir, "-fq1", fq, "-o",
+                           tsv, "--device", str(dev), "--profile"])
+            wall = time.perf_counter() - t0
+        finally:
+            sw.gather_score_hash = kernel
         if rc != 0:
             raise AssertionError(f"cli haplocart returned {rc}")
         st = profiling.PROFILER.stages["map+score"]
@@ -366,6 +633,7 @@ def phase_e2e(dev, out_dir):
     if launches["gather_score_hash"] < 1:
         raise AssertionError(f"SW kernel never launched: {launches}")
     log(f"TSV: {lines[1]}; kernel launches in the 3 runs: {launches}")
+    hc_sw = check_sw_calls("haplocart", calls, clock)
 
     # final_vec against the --precise host oracle on the same reads
     db = runner.load_db(db_dir, dev)
@@ -386,10 +654,74 @@ def phase_e2e(dev, out_dir):
         raise AssertionError(f"final_vec vs host oracle: rel diff {rel:g}")
     log(f"final_vec: argmax {pred} = host oracle's; {n_dev} reads kept; "
         f"max rel diff {rel:.3g}")
-    timed = runs[1:]
-    return dict(launches=launches, runs=runs,
-                reads_per_s=[N_READS / r["map_score_s"] for r in timed],
-                cli_wall_s=[r["wall_s"] for r in timed])
+    obj = check_object_path(dev, db.graph, fq, clock)
+    timed_runs = runs[1:]
+    return dict(launches=launches, runs=runs, sw=hc_sw, object_path=obj,
+                reads_per_s=[N_READS / r["map_score_s"] for r in timed_runs],
+                cli_wall_s=[r["wall_s"] for r in timed_runs])
+
+
+def check_object_path(dev, graph, fq, clock):
+    """The mapper's object path (BatchedMapper._map_reads_obj: the
+    oracle the production path is held against; its candidate windows
+    are scored by one sw_scores call) on the first OBJECT_PATH_READS
+    reads, with the launch counts set to 0 just before it: sw_scores
+    launched, every alignment equal to the production path's, each
+    sw_scores call equal to plain and timed beside its bound."""
+    from vgan_tpu_torch.io import fastx
+    from vgan_tpu_torch.mapper import sw
+    from vgan_tpu_torch.mapper.giraffe import BatchedMapper
+
+    reads = fastx.read_fastq(fq)[:OBJECT_PATH_READS]
+    mapper = BatchedMapper(graph, k=31, w=11, device=dev)
+    kernel, calls = sw.sw_scores, []
+
+    def keeping(*args):
+        out = kernel(*args)
+        calls.append((args, out))
+        return out
+
+    sw.reset_launches()
+    sw.sw_scores = keeping
+    try:
+        t0 = time.perf_counter()
+        old = mapper._map_reads_obj(reads)
+        obj_s = time.perf_counter() - t0
+    finally:
+        sw.sw_scores = kernel
+    launches = sw.LAUNCHES["sw_scores"]
+    if launches < 1:
+        raise AssertionError("object path launched no sw_scores kernel")
+    new = mapper.map_reads(reads)
+
+    def key(a):
+        return (a.score, a.mapping_quality, round(a.identity, 12),
+                [(m.position.node_id, m.position.offset,
+                  m.position.is_reverse,
+                  [(e.from_length, e.to_length, e.sequence)
+                   for e in m.edits]) for m in a.path.mappings])
+
+    bad = [a.name for a, b in zip(old, new) if key(a) != key(b)]
+    if bad or len(old) != len(new):
+        raise AssertionError(f"object path vs production path: {len(bad)} "
+                             f"alignments differ, e.g. {bad[:3]}")
+    max_err, rows = 0.0, []
+    for i, (args, got) in enumerate(calls):
+        max_err = max(max_err, _exact(f"object path sw_scores call {i}",
+                                      got, sw.sw_scores_plain(*args)))
+        B, R = args[0].shape
+        W = args[1].shape[1]
+        t = clock.timed(
+            f"object path sw_scores call {i} B={B} R={R} W={W}",
+            lambda a=args: sw.sw_scores(*a),
+            lambda a=args: sw.sw_scores_plain(*a), sw_work(*args))
+        t.update(B=B, R=R, W=W)
+        rows.append(t)
+    log(f"object path: {len(reads)} reads in {obj_s:.2f} s, {launches} "
+        f"sw_scores launch(es), alignments equal to the production "
+        f"path's, calls equal to plain")
+    return dict(launches=launches, max_abs_err=max_err, calls=rows,
+                map_s=obj_s)
 
 
 # ----------------------------------------------------------------- phase 5
@@ -479,30 +811,33 @@ def profile_call(fn):
                          for us, n, k in ops[:6]])
 
 
-def check_euka_sw_calls(calls):
-    """Each gather_score_hash call of a euka mapping (euka's own read,
+def check_sw_calls(label, calls, clock):
+    """Each gather_score_hash call of a mapping (the pipeline's own read,
     window and row buckets) against the plain version on the same
-    inputs, exactly; kernel and plain times at the first call's shape."""
+    inputs, exactly, and timed beside its bound."""
     from vgan_tpu_torch.mapper import sw
 
-    max_err = 0.0
+    max_err, rows = 0.0, []
     for i, (args, got) in enumerate(calls):
         want = sw.gather_score_hash_plain(*args)
         for nm, g, w in zip(("scores", "h1", "h2"), got, want):
             max_err = max(max_err, _exact(
-                f"euka gather_score_hash call {i} {nm}", g, w))
-    shapes = [dict(M=a[3].shape[1], Rmax=a[1].shape[1], Wmax=a[4])
-              for a, _o in calls]
-    a = calls[0][0]
-    ms = cuda_ms(lambda: sw.gather_score_hash(*a), reps=20)
-    plain_ms = cuda_ms(lambda: sw.gather_score_hash_plain(*a), reps=2)
-    log(f"euka gather_score_hash calls {shapes}: scores and hashes equal "
-        f"to plain; at {shapes[0]} kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms")
-    return dict(max_abs_err=max_err, shapes=shapes, ms=ms, plain_ms=plain_ms)
+                f"{label} gather_score_hash call {i} {nm}", g, w))
+        M, Rmax, Wmax = args[3].shape[1], args[1].shape[1], args[4]
+        live = int((args[3][2] > 0).sum())
+        t = clock.timed(
+            f"{label} gather_score_hash call {i} M={M} ({live} live) "
+            f"Rmax={Rmax} Wmax={Wmax}",
+            lambda a=args: sw.gather_score_hash(*a),
+            lambda a=args: sw.gather_score_hash_plain(*a), gsh_work(*args))
+        t.update(M=M, Rmax=Rmax, Wmax=Wmax, live_rows=live)
+        rows.append(t)
+    log(f"{label}: {len(calls)} gather_score_hash calls, scores and "
+        f"hashes equal to plain")
+    return dict(max_abs_err=max_err, calls=rows)
 
 
-def compare_card_cpu(dev, euka_dir, d5, d3, fq):
+def compare_card_cpu(dev, euka_dir, d5, d3, fq, clock):
     """Map on the card and on the CPU: every field of the two tables
     equal, and each SW kernel call of the card's mapping equal to the
     plain version. Then score the card's table and run the MCMC on the
@@ -546,7 +881,7 @@ def compare_card_cpu(dev, euka_dir, d5, d3, fq):
         finally:
             sw.gather_score_hash = kernel
     torch.cuda.synchronize()
-    sw_check = check_euka_sw_calls(calls)
+    sw_check = check_sw_calls("euka", calls, clock)
     t0 = time.perf_counter()
     on_cpu = BatchedMapper(graph, k=20, w=10, device="cpu").map_reads_table(
         reads)
@@ -606,7 +941,7 @@ def compare_card_cpu(dev, euka_dir, d5, d3, fq):
                 sw=sw_check), rc
 
 
-def phase_euka(dev, out_dir):
+def phase_euka(dev, out_dir, clock):
     from vgan_tpu_torch import cli
     from vgan_tpu_torch.mapper import batch_map, sw
     from vgan_tpu_torch.pipelines.euka_runner import (
@@ -649,7 +984,7 @@ def phase_euka(dev, out_dir):
     launches = dict(sw.LAUNCHES)
     log(f"euka: detected exactly the planted taxa in all runs; kernel "
         f"launches in the 3 runs: {launches}")
-    cmp, res = compare_card_cpu(dev, euka_dir, d5, d3, fq)
+    cmp, res = compare_card_cpu(dev, euka_dir, d5, d3, fq, clock)
 
     def cli_run():
         if cli.main(argv) != 0:
@@ -684,21 +1019,24 @@ def main() -> int:
     torch.cuda.set_device(dev)
 
     name, smi = phase_device()
-    builds = phase_build()
-    k = phase_kernels(dev)
+    builds, sass = phase_build()
+    clock = Clock(smi)
+    k = phase_kernels(dev, clock)
     with tempfile.TemporaryDirectory(prefix="vgan_smoke_") as tmp:
-        e2e = phase_e2e(dev, tmp)
+        e2e = phase_e2e(dev, tmp, clock)
     log(f"e2e: {', '.join(f'{x:.0f}' for x in e2e['reads_per_s'])} reads/s "
         f"(map+score, {N_READS} reads, {N_HAPS} paths) on {smi}")
     with tempfile.TemporaryDirectory(prefix="vgan_smoke_euka_") as tmp:
-        eu = phase_euka(dev, tmp)
+        eu = phase_euka(dev, tmp, clock)
     log(f"euka: euka_realdb_e2e_reads_per_s "
         f"{', '.join(f'{x:.0f}' for x in eu['reads_per_s'])}; "
         f"euka_mcmc_iters_per_s "
         f"{', '.join(f'{x:.0f}' for x in eu['mcmc_iters_per_s'])} "
         f"({EUKA_TAXA} taxa) on {smi}")
     log("summary " + json.dumps(dict(
-        builds_s=builds, kernels=k, e2e_reads_per_s=e2e["reads_per_s"],
+        card=smi, builds_s=builds, sass=sass, kernels=k,
+        haplocart_sw_calls=e2e["sw"], object_path=e2e["object_path"],
+        e2e_reads_per_s=e2e["reads_per_s"],
         e2e_cli_wall_s=e2e["cli_wall_s"],
         mapper_stage_s=[r["stages"] for r in e2e["runs"]],
         euka_realdb_e2e_reads_per_s=eu["reads_per_s"],
@@ -706,18 +1044,40 @@ def main() -> int:
         euka_cli_wall_s=eu["cli_wall_s"],
         euka_mapper_stage_s=[r["stages"] for r in eu["runs"]],
         euka_card_vs_cpu=eu["compare"], euka_profile=eu["profile"])))
+    # launches: sw_scores from the mapper's object path, gather_score_hash
+    # from the HaploCart and euka CLI runs (each counted from 0 just
+    # before its runs); times and bounds at the timing shape and at the
+    # mapper's pool batch
+    t_sw, t_gsh = k["sw"], k["gsh"]["pool"]
     print(smi)
     print(json.dumps({"kernels": [{
+        "name": "sw_scores_kernel",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": REPLACES,
+        "launches": e2e["object_path"]["launches"],
+        "max_abs_err": max(k["max_abs_err"]["sw_scores"],
+                           e2e["object_path"]["max_abs_err"]),
+        "ms": t_sw["ms"],
+        "plain_ms": t_sw["plain_ms"],
+        "bound_ms": t_sw["bound_ms"],
+        "bound_by": t_sw["bound_by"],
+        "library_ms": None,
+    }, {
         "name": "gather_score_hash_kernel",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
         "launches": (e2e["launches"]["gather_score_hash"]
                      + eu["launches"]["gather_score_hash"]),
-        "max_abs_err": max(k["max_abs_err"],
+        "max_abs_err": max(k["max_abs_err"]["gather_score_hash"],
+                           e2e["sw"]["max_abs_err"],
                            eu["compare"]["sw"]["max_abs_err"]),
-        "ms": k["gsh_ms"],
-        "plain_ms": k["gsh_plain_ms"],
+        "ms": t_gsh["ms"],
+        "plain_ms": t_gsh["plain_ms"],
+        "bound_ms": t_gsh["bound_ms"],
+        "bound_by": t_gsh["bound_by"],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

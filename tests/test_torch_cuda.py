@@ -26,12 +26,16 @@ def dev():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _planted(rng, B, R, W, L):
+def _planted(rng, B, R, W):
+    """Reads planted in their windows with 3% substitutions; random
+    lengths (0 included), with rlen == 0 and wlen == 0 forced."""
     win = rng.integers(0, 5, size=(B, W)).astype(np.int32)
     wlen = rng.integers(0, W + 1, size=B).astype(np.int32)
-    win[np.arange(W)[None, :] >= wlen[:, None]] = 255
     read = np.full((B, R), 255, dtype=np.int32)
     rlen = rng.integers(0, R + 1, size=B).astype(np.int32)
+    rlen[0] = 0
+    wlen[min(1, B - 1)] = 0
+    win[np.arange(W)[None, :] >= wlen[:, None]] = 255
     for b in range(B):
         s = int(rng.integers(0, max(1, wlen[b] - rlen[b] + 1)))
         seg = win[b, s : s + rlen[b]].copy()
@@ -41,13 +45,19 @@ def _planted(rng, B, R, W, L):
     return read, win, rlen, wlen
 
 
-@pytest.mark.parametrize("B,R,W", [(16, 64, 128), (1000, 128, 192),
-                                   (64, 300, 400)])
+# every rows-per-lane bucket (R = 32 ... 256), several bands (288, 300,
+# 1,024: past the 807-row shared-memory limit of a thread-per-pair
+# design), fewer pairs than a block's 8 warps, a batch that is not a
+# multiple of 8, and window widths that are not multiples of 32
+@pytest.mark.parametrize("B,R,W", [
+    (16, 64, 128), (1000, 128, 192), (64, 300, 400), (5, 32, 64),
+    (37, 96, 200), (300, 256, 320), (45, 288, 320), (12, 1024, 1152),
+])
 def test_sw_scores_kernel_equals_plain(dev, B, R, W):
     from vgan_tpu_torch.mapper import sw
 
     args = [torch.from_numpy(a).to(dev)
-            for a in _planted(np.random.default_rng(B), B, R, W, 100)]
+            for a in _planted(np.random.default_rng(B + R), B, R, W)]
     sw.reset_launches()
     got = sw.sw_scores(*args)
     torch.cuda.synchronize()
@@ -55,45 +65,71 @@ def test_sw_scores_kernel_equals_plain(dev, B, R, W):
     assert torch.equal(got, sw.sw_scores_plain(*args))
 
 
-@pytest.mark.parametrize("aux_dtype", [np.int32, np.int64])
-def test_gather_score_hash_kernel_equals_plain(dev, aux_dtype):
+# (aux dtype, rows M, live rows, Rmax, Wmax): both aux dtypes at the
+# mapper's widths, M below one block and not a multiple of 8, Wmax 200,
+# several bands at Rmax 288 and 1,024; windows run past the pool's end
+@pytest.mark.parametrize("aux_dtype,M,m,Rmax,Wmax", [
+    pytest.param(np.int32, 4096, 3500, 128, 256, id="int32"),
+    pytest.param(np.int64, 4096, 3500, 128, 256, id="int64"),
+    (np.int32, 5, 5, 32, 64), (np.int64, 1003, 900, 96, 200),
+    (np.int32, 300, 280, 288, 320), (np.int32, 64, 60, 1024, 1152),
+])
+def test_gather_score_hash_kernel_equals_plain(dev, aux_dtype, M, m, Rmax,
+                                               Wmax):
     from vgan_tpu_torch.mapper import sw
 
     rng = np.random.default_rng(3)
-    pool = rng.integers(0, 5, size=200_000).astype(np.uint8)
-    reads_mat = np.full((512, 128), 255, dtype=np.uint8)
-    read_lens = rng.integers(0, 129, size=512).astype(np.int32)
-    for i in range(512):
+    P, n_reads = 200_000, 512
+    pool = rng.integers(0, 5, size=P).astype(np.uint8)
+    reads_mat = np.full((n_reads, Rmax), 255, dtype=np.uint8)
+    read_lens = rng.integers(0, Rmax + 1, size=n_reads).astype(np.int32)
+    for i in range(n_reads):
         reads_mat[i, : read_lens[i]] = rng.integers(0, 5, size=read_lens[i])
-    M, m = 4096, 3500
     aux = np.zeros((4, M), dtype=aux_dtype)
-    aux[0, :m] = rng.integers(0, 512, size=m)
-    aux[1, :m] = rng.integers(0, len(pool) - 100, size=m)
-    aux[2, :m] = rng.integers(1, 257, size=m)  # some run past the pool end
+    aux[0, :m] = rng.integers(0, n_reads, size=m)
+    aux[1, :m] = rng.integers(0, P - 100, size=m)
+    aux[1, : m // 8] = P - rng.integers(1, Wmax, size=m // 8)  # past P
+    aux[2, :m] = rng.integers(1, Wmax + 1, size=m)
     aux[3, :m] = rng.integers(0, 2, size=m)
+    for i in range(0, m, 5):  # plant reads: some rows score high
+        L = int(read_lens[aux[0, i]])
+        aux[1, i] = int(rng.integers(0, P - Rmax - 100))
+        aux[2, i] = min(Wmax, L + 40)
+        seg = reads_mat[aux[0, i], :L]
+        pool[aux[1, i] + 20 : aux[1, i] + 20 + L] = (
+            np.where(seg < 4, 3 - seg, seg)[::-1] if aux[3, i] else seg)
     args = [torch.from_numpy(a).to(dev)
             for a in (pool, reads_mat, read_lens, aux)]
     sw.reset_launches()
-    got = sw.gather_score_hash(*args, 256)
+    got = sw.gather_score_hash(*args, Wmax)
     torch.cuda.synchronize()
     assert sw.LAUNCHES["gather_score_hash"] == 1
-    want = sw.gather_score_hash_plain(*args, 256)
+    want = sw.gather_score_hash_plain(*args, Wmax)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
         assert torch.equal(g, w)
 
 
-def test_mapper_on_card_equals_cpu(dev, tmp_path):
+# 100-bp reads in three chunks, and 1,000-bp reads (a 1,024-row read
+# bucket, four bands of rows)
+@pytest.mark.parametrize("read_len,n_reads,launches", [(100, 300, 3),
+                                                       (1000, 12, 1)])
+def test_mapper_on_card_equals_cpu(dev, tmp_path, read_len, n_reads,
+                                   launches):
     import _torch_world as world
     from vgan_tpu_torch.graph import synth
     from vgan_tpu_torch.mapper import sw
     from vgan_tpu_torch.mapper.giraffe import BatchedMapper
 
     graph, _db, _fq, reads = world.build(synth, tmp_path)
+    if read_len != 100:
+        reads = synth.sample_reads(graph, world.HAP, n_reads,
+                                   read_len=read_len, seed=1)
     sw.reset_launches()
     on_card = BatchedMapper(graph, k=31, w=11, device=dev).map_reads_table(
         reads, chunk=128)
-    assert sw.LAUNCHES["gather_score_hash"] == 3
+    assert sw.LAUNCHES["gather_score_hash"] == launches
+    assert (on_card.score[:n_reads] > read_len * 0.9).all()
     on_cpu = BatchedMapper(graph, k=31, w=11, device="cpu").map_reads_table(
         reads, chunk=128)
     for f in ("score", "identity", "mq", "nmap", "m_node", "m_off", "e_from",

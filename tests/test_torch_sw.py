@@ -86,9 +86,25 @@ def test_sw_scores_edge_cases_bit_equal(seed):
     assert (got[4:8].view(np.float32) == 0).all()
 
 
+# a 1,024-row read bucket over 1,152 columns (past the 807-row limit of
+# a thread-per-pair kernel), and a window width that is no multiple of 32
+@pytest.mark.parametrize("B,R,W,seed", [(8, 1024, 1152, 6),
+                                        (16, 64, 200, 7)])
+def test_sw_scores_plain_bit_equal_to_xla_and_reference(B, R, W, seed):
+    read, win, rlen, wlen = _make_batch(np.random.default_rng(seed), B, R, W)
+    got = _bits(sw.sw_scores_plain(
+        *(torch.from_numpy(a) for a in (read, win, rlen, wlen))).numpy())
+    xla = _bits(sw_pallas.sw_scores_xla(read, win, rlen, wlen))
+    ref = _bits(sw_pallas.sw_scores_reference(read, win, rlen, wlen))
+    np.testing.assert_array_equal(got, xla)
+    np.testing.assert_array_equal(got, ref)
+
+
 def _random_pool_batch(rng, aux_dtype, n_reads=40, Rmax=64, Wmax=128,
                        n_cand=150, pad_to=256):
-    pool = rng.integers(0, 5, size=5000).astype(np.uint8)
+    gap = max(100, Rmax + 36)  # pool offset between planted reads
+    pool = rng.integers(0, 5, size=max(5000, gap * n_reads + Wmax))
+    pool = pool.astype(np.uint8)
     reads_mat = np.full((64, Rmax), 255, dtype=np.uint8)
     read_lens = np.zeros(64, dtype=np.int32)
     read_lens[:n_reads] = rng.integers(20, Rmax + 1, size=n_reads)
@@ -100,13 +116,13 @@ def _random_pool_batch(rng, aux_dtype, n_reads=40, Rmax=64, Wmax=128,
     for i in range(0, n_reads, 3):
         L = read_lens[i]
         seg = reads_mat[i, :L] if i % 2 else comp[reads_mat[i, :L]][::-1]
-        off = 100 * i
+        off = gap * i
         pool[off : off + L] = seg
     aux = np.zeros((4, pad_to), dtype=aux_dtype)
     c_read = rng.integers(0, n_reads, size=n_cand)
     aux[0, :n_cand] = c_read
     aux[1, :n_cand] = np.where(
-        rng.random(n_cand) < 0.3, 100 * c_read - 5,
+        rng.random(n_cand) < 0.3, gap * c_read - 5,
         rng.integers(0, len(pool) - Wmax, size=n_cand))
     aux[1, :n_cand] = np.clip(aux[1, :n_cand], 0, None)
     aux[2, :n_cand] = rng.integers(1, Wmax + 1, size=n_cand)
@@ -114,12 +130,19 @@ def _random_pool_batch(rng, aux_dtype, n_reads=40, Rmax=64, Wmax=128,
     return pool, reads_mat, read_lens, aux, Wmax
 
 
-@pytest.mark.parametrize("aux_dtype", [np.int32, np.int64])
-def test_gather_score_hash_bit_equal_to_jax(aux_dtype):
+# both aux dtypes at euka's widths, and 1,024-row reads (the card's
+# kernel sweeps them in four bands) on fewer candidate rows
+@pytest.mark.parametrize("aux_dtype,Rmax,Wmax,n_cand,pad_to", [
+    pytest.param(np.int32, 64, 128, 150, 256, id="int32"),
+    pytest.param(np.int64, 64, 128, 150, 256, id="int64"),
+    pytest.param(np.int32, 1024, 1088, 20, 32, id="int32-Rmax1024")])
+def test_gather_score_hash_bit_equal_to_jax(aux_dtype, Rmax, Wmax, n_cand,
+                                            pad_to):
     """Scores and both hashes, over both strands, padding rows (wlen 0)
     and both aux dtypes."""
     pool, reads_mat, read_lens, aux, Wmax = _random_pool_batch(
-        np.random.default_rng(11), aux_dtype)
+        np.random.default_rng(11), aux_dtype, Rmax=Rmax, Wmax=Wmax,
+        n_cand=n_cand, pad_to=pad_to)
     want = np.asarray(sw_pallas.gather_score_hash(
         pool, reads_mat, read_lens, aux, Wmax))
     scores, h1, h2 = sw.gather_score_hash(
@@ -131,8 +154,8 @@ def test_gather_score_hash_bit_equal_to_jax(aux_dtype):
     # the planted reads score a full-length exact hit on their strand
     assert float(scores.max()) >= float(read_lens.min()) + 10
     # padding rows: score 0, the hash of an all-255 window
-    assert (scores.numpy()[150:] == 0).all()
-    assert len(set(h1.numpy()[150:].tolist())) == 1
+    assert (scores.numpy()[n_cand:] == 0).all()
+    assert len(set(h1.numpy()[n_cand:].tolist())) == 1
 
 
 def test_cpu_wrappers_run_plain_and_count_no_launch():
