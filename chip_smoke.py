@@ -8,8 +8,9 @@ and prints no result):
 
 1. device  — the card's name, and its name and power limit from
    nvidia-smi; no CUDA device is an error.
-2. build   — the native host library (g++) and csrc/sw.cu (nvcc, sm_90a)
-   from the checkout's sources; seconds of each build; `cuobjdump -sass`
+2. build   — the native host library (g++), csrc/sw.cu and
+   csrc/tree_mcmc.cu (nvcc, sm_90a) from the checkout's sources, the
+   three compilers started together; seconds of each build; `cuobjdump -sass`
    of the SW library, which must show Hopper's DPX max instructions
    (VIMNMX3, VIADDMNMX) in every instantiation of both kernels, and
    whose DP step (the straight-line block holding the most VIMNMX3, one
@@ -65,13 +66,36 @@ and prints no result):
    (rtol 1e-12; counts and detected taxa equal), and one torch.profiler
    pass over a CLI run for the device time, the idle share and the peak
    device memory.
+6. soibean — a reference-free world at a family's scale: a seeded random
+   128-leaf tree (255 nodes, branch lengths in [0.01, 0.3]) as Newick,
+   one path a tree node over a seeded random 16,569-bp backbone of 2-bp
+   nodes, each branch bringing 150 single-base variants a unit of
+   length (tests/_torch_world.py:build_tree_graph), saved as
+   <prefix>.npz with soibean_db.baseFreq and tree_dir/<prefix>.new.dnd;
+   4,000 64-bp reads of the three leaves with the most private variants
+   at 2,400 / 1,200 / 400. `vgan_tpu_torch.cli soibean --device cuda
+   --chains 4 --iter 100000 --burnin 15000` once to warm up and twice
+   timed: the signature paths must be exactly the planted leaves, every
+   output file for k = 1..3 written, and at k = 3 the chain of the
+   highest log-likelihood must end on the planted leaves (or their
+   parents) with mean proportions within 0.15 of 0.6 / 0.3 / 0.1; both
+   kernels launched. The warm-up run's SW kernel calls against plain
+   and timed; then tree_mcmc_segment_kernel against its plain version
+   on the card and on the CPU over 1,000 steps of the run's own k-sweep
+   batch (200 burn-in steps, 800 after it; node ids exact, floats to
+   rtol 1e-10), and timed a step beside its bound, the plain version a
+   step on the card over 200 steps. Phase 6 runs before phase 5, whose
+   profiler pass slows every later launch of the process.
 
-The kernels line lists both kernels: gather_score_hash_kernel's
-launches are those of the HaploCart and euka runs together, and
-sw_scores_kernel's those of the object path (each counted from 0 just
-before its runs); ms, plain_ms and the bound are at the mapper's shape
-(sw_scores: B=32,768 full-length pairs; gather_score_hash: the pool
-batch). Every timing line names the card and its power limit. The
+The kernels line lists the three kernels: gather_score_hash_kernel's
+launches are those of the HaploCart, soibean and euka runs together,
+sw_scores_kernel's those of the object path and
+tree_mcmc_segment_kernel's those of the soibean runs (each counted from
+0 just before its runs); ms, plain_ms and the bound are at the mapper's
+shape (sw_scores: B=32,768 full-length pairs; gather_score_hash: the
+pool batch) and, for the tree kernel, 200 post-burn-in steps of the
+soibean k-sweep batch (12 rows, Kmax 3, 4,000 reads, 255 paths).
+Every timing line names the card and its power limit. The
 second-to-last lines are the nvidia-smi line and one JSON object
 describing the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -130,6 +154,24 @@ EUKA_GATES = ["--minMQ", "29", "--minFrag", "10", "--minBins", "6",
               "--burnin", str(EUKA_BURNIN)]
 # the chain steps that run: burn-in proposals are never evaluated
 EUKA_STEPS = EUKA_ITER - EUKA_BURNIN - 1
+# soibean: a family-scale tree (leaves; 2 * leaves - 1 nodes), one path a
+# tree node over a mitogenome-length backbone of 2-bp nodes with variants
+# along the branches (sites a unit of branch length), 64-bp reads of the
+# three leaves with the most private variants
+TREE_SOURCE = "vgan_tpu_torch/csrc/tree_mcmc.cu"
+TREE_REPLACES = "vgan_tpu/infer/tree_mcmc.py:647"  # _run_segment
+SB_LEAVES, SB_BP, SB_SITES_PER_UNIT, SB_NODE_LEN = 128, 16569, 150, 2
+SB_PREFIX, SB_READ_LEN = "family", 64
+SB_MIX = (2400, 1200, 400)  # reads of the three planted leaves
+SB_SHARES = (0.6, 0.3, 0.1)
+SB_ITER, SB_BURNIN, SB_CHAINS = 100000, 15000, 4
+# the kernel against its plain versions: steps of the burn-in walk, then
+# steps of the post-burn-in walk from the carry; the plain version's
+# time a step and the kernel's over SB_TIMED_STEPS
+SB_CHECK_BURN, SB_CHECK_POST, SB_TIMED_STEPS = 200, 800, 200
+# f64 multiply-adds on an H100 SXM: 67 TFLOP/s in the tensor cores
+# (NVIDIA's data sheet), the largest f64 rate the card has
+F64_FMA_PER_S = 67e12 / 2
 
 
 def log(msg: str) -> None:
@@ -270,15 +312,21 @@ def phase_device():
 
 # ----------------------------------------------------------------- phase 2
 def phase_build():
+    """The three native libraries, their compilers all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from vgan_tpu_torch import _native
 
-    libs = {}
-    for name, build in (("host", _native.host_lib),
-                        ("sw.cu", _native.sw_lib)):
-        t0 = time.perf_counter()
-        lib = libs[name] = build()
-        log(f"build {name}: {time.perf_counter() - t0:.2f} s "
-            f"({os.path.relpath(lib._name, HERE)})")
+    builds = (("host", _native.host_lib), ("sw.cu", _native.sw_lib),
+              ("tree_mcmc.cu", _native.tree_mcmc_lib))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futures = {name: pool.submit(build) for name, build in builds}
+        libs = {name: f.result() for name, f in futures.items()}
+    for name, lib in libs.items():
+        log(f"build {name}: {os.path.relpath(lib._name, HERE)}")
+    log(f"builds: {time.perf_counter() - t0:.2f} s together; compile "
+        f"seconds each {json.dumps(_native.BUILD_SECONDS)}")
     return dict(_native.BUILD_SECONDS), check_sass(libs["sw.cu"]._name)
 
 
@@ -1001,6 +1049,314 @@ def phase_euka(dev, out_dir, clock):
                 cli_wall_s=[r["wall_s"] for r in timed])
 
 
+# ----------------------------------------------------------------- phase 6
+def build_soibean_world(out_dir):
+    """The soibean DB and reads (see the module docstring), through
+    tests/_torch_world.py's functions over the port's synth. Returns
+    (db_dir, fastq, planted leaf names, their parents, n_reads)."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import _torch_world as world
+    from vgan_tpu_torch.graph import synth
+    from vgan_tpu_torch.utils.newick import parse_newick
+
+    t0 = time.perf_counter()
+    tw = world.random_tree(SB_LEAVES, 7)
+    graph, private = world.build_tree_graph(
+        synth, tw, SB_BP, SB_SITES_PER_UNIT, node_len=SB_NODE_LEN, seed=5)
+    db_dir = world.write_soibean_db(os.path.join(out_dir, "soibean"),
+                                    SB_PREFIX, graph, tw[0],
+                                    (0.3, 0.2, 0.22, 0.28))
+    planted = sorted((n for n in private if n.startswith("L")),
+                     key=lambda n: -private[n])[:3]
+    fq = os.path.join(out_dir, "soibean_reads.fq")
+    n_reads = len(world.write_source_fastq(
+        synth, graph, fq, list(zip(planted, SB_MIX)), read_len=SB_READ_LEN))
+    tree = parse_newick(tw[0])
+    parents = {n: tree.names[tree.parent[tree.names.index(n)]]
+               for n in planted}
+    log(f"soibean world: a {tree.n_nodes}-node tree, {graph.n_paths} paths, "
+        f"{graph.n_nodes} nodes, {sum(private.values())} variants; "
+        f"{n_reads} reads of {planted} ({[private[n] for n in planted]} "
+        f"private variants) ({time.perf_counter() - t0:.1f} s)")
+    return db_dir, fq, planted, parents, n_reads
+
+
+def check_soibean_outputs(prefix, planted, parents, sig_names):
+    """Every output file for k = 1..3, the signature paths exactly the
+    planted leaves, and at k = 3 the chain of the highest log-likelihood
+    ending on the planted leaves (or their parents) with mean proportions
+    within 0.15 of SB_SHARES. Returns that chain's {source: proportion}."""
+    if sorted(sig_names) != sorted(planted):
+        raise AssertionError(f"soibean signature paths {sig_names}, "
+                             f"planted {planted}")
+    files = []
+    for k in range(1, 4):
+        files += [f"{prefix}ProportionEstimates{k}.txt",
+                  f"{prefix}BranchEstimate{k}.txt",
+                  f"{prefix}Diagnostics{k}0.txt"]
+        files += [f"{prefix}{kind}{k}{c}{ext}" for c in range(SB_CHAINS)
+                  for kind, ext in (("Result", ".mcmc"),
+                                    ("Trace", ".detail.mcmc"))]
+    missing = [f for f in files if not os.path.exists(f)]
+    if missing or os.path.exists(f"{prefix}Diagnostics40.txt"):
+        raise AssertionError(f"soibean outputs missing {missing} (or k > 3)")
+    with open(f"{prefix}Diagnostics30.txt") as f:
+        best = int(f.read().splitlines()[1].split("\t")[2])
+    with open(f"{prefix}ProportionEstimates3.txt") as f:
+        rows = [l.split("\t") for l in f.read().splitlines()[1:]]
+    got = {r[0]: float(r[2]) for r in rows if int(r[1]) == best}
+    owner = {}
+    for name in got:
+        leaf = [n for n in planted if name in (n, parents[n])]
+        if len(leaf) != 1 or leaf[0] in owner.values():
+            raise AssertionError(f"soibean k=3 chain {best} ends on "
+                                 f"{sorted(got)}, planted {planted}")
+        owner[name] = leaf[0]
+    for name, share in got.items():
+        want = SB_SHARES[planted.index(owner[name])]
+        if abs(share - want) > 0.15:
+            raise AssertionError(f"soibean {name}: mean proportion {share} "
+                                 f"vs {want}")
+    return got
+
+
+def tree_bound_ms(mask, S, R, count_bytes, hops):
+    """(least milliseconds, "bytes" or "operations") for S steps of the
+    rows in `mask` [B, K]: every input read once and every output written
+    once (the path-major tables [P, R] f64 and [P, R, 25], the noise and
+    the trace), against the f64 multiply-adds of the counts' dot products
+    (25 a read and source slice, two slices an active source) at the
+    card's f64 rate, whichever takes longer. Also returns the
+    milliseconds a step takes to stream its slices from device memory
+    when each is read anew (the kernel's design)."""
+    B, K = mask.shape
+    P = count_bytes["P"]
+    nbytes_once = (P * R * 8 + P * R * 25 * count_bytes["size"]
+                   + S * B * (K * (2 + 4 * hops) + 1) * 4
+                   + S * B * (K * 20 + 8))
+    fma = S * int(mask.sum()) * 2 * R * 25
+    t_bytes = nbytes_once / HBM_BYTES_PER_S
+    t_ops = fma / F64_FMA_PER_S
+    streamed = int(mask.sum()) * 2 * R * (25 * count_bytes["size"] + 8)
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            streamed / HBM_BYTES_PER_S * 1e3)
+
+
+def check_tree_kernel(dev, call, smi):
+    """The kernel against its plain version on the card and on the CPU,
+    over SB_CHECK_BURN + SB_CHECK_POST steps of the run's own k-sweep
+    batch (`call`: the arguments of run_tree_mcmc_ksweep in the CLI run),
+    noise drawn once; node ids exact, positions, proportions and
+    log-likelihoods to rtol 1e-10. Then timed: the kernel a step over
+    SB_TIMED_STEPS and over a runner's segment, the plain version a step
+    on the card over SB_TIMED_STEPS, beside the bound."""
+    import numpy as np
+    import torch
+
+    from vgan_tpu_torch.infer import tree_mcmc as tm
+
+    args, kw = call
+    tree, data = args[0], args[1]
+    srcs, mask, theta0, ll0, seeds = tm.ksweep_rows(
+        args[3], kw["init_logls"], kw["seeds_per_k"], dev)
+    B, K = srcs.shape
+    P, R = data.path_map_t.shape
+    sd_all = tm.sd_schedule(SB_ITER, SB_BURNIN, kw["num_paths"])
+    burn_hops = tm.burn_walk_hops(kw["num_paths"])
+    post0 = SB_BURNIN + 1
+    plan = ((0, SB_CHECK_BURN, burn_hops),
+            (post0, post0 + SB_CHECK_POST, tm.POST_BURN_HOPS))
+    cpu_data = tm.prepare(tree, data.path_map_t.T.cpu().numpy(),
+                          data.counts25_t.permute(1, 0, 2).cpu().numpy(),
+                          dict(zip(tm.FREQ_KEYS, data.freq.tolist())),
+                          data.con, "cpu")
+    runs = {"kernel": (tm.run_segment, data),
+            "plain": (tm.run_segment_plain, data),
+            "cpu": (tm.run_segment, cpu_data)}
+    start = (torch.as_tensor(srcs), torch.full((B, K), 0.5,
+                                                dtype=torch.float64),
+             theta0.cpu(), torch.as_tensor(ll0))
+    carry = {n: tuple(x.to(d.device) for x in start)
+             for n, (_f, d) in runs.items()}
+    mask_t = torch.as_tensor(mask)
+    recs = {n: [] for n in runs}
+    secs = {n: 0.0 for n in runs}
+    tm.reset_launches()  # these launches are not the main path's
+    for i0, i1, hops in plan:
+        noise = tm.draw_noise(seeds, i0, i1, K, hops, "cpu")
+        for name, (fn, d) in runs.items():
+            on = d.device
+            t0 = time.perf_counter()
+            carry[name], rec = fn(
+                *carry[name], mask_t.to(on), torch.arange(i0, i1, device=on),
+                torch.from_numpy(sd_all[i0:i1]).to(on),
+                tm.Noise(*(x.to(on) for x in noise)), d.path_map_t,
+                d.counts25_t, d.tree, d.con, d.freq)
+            if on.type == "cuda":
+                torch.cuda.synchronize()
+            secs[name] += time.perf_counter() - t0
+            recs[name].append([x.cpu() for x in rec])
+    max_err = 0.0
+    for other in ("plain", "cpu"):
+        for a, b in zip(recs["kernel"], recs[other]):
+            if not torch.equal(a[0], b[0]):
+                raise AssertionError(f"tree kernel vs {other}: node ids "
+                                     "differ")
+            for x, y in zip(a[1:], b[1:]):
+                bad = (x - y).abs() > 1e-10 * y.abs()
+                if bool(bad.any()):
+                    raise AssertionError(
+                        f"tree kernel vs {other}: {int(bad.sum())} values "
+                        "past rtol 1e-10")
+                max_err = max(max_err, float((x - y).abs().max()))
+    ll_rec = torch.cat([r[3] for r in recs["kernel"]], dim=1).numpy()
+    acc = float((np.diff(ll_rec, axis=1) != 0).mean())
+    steps = SB_CHECK_BURN + SB_CHECK_POST
+    log(f"tree kernel vs plain on the card and on the CPU: {steps} steps of "
+        f"the k-sweep batch (B={B}, Kmax={K}, R={R}, P={P}, {burn_hops} then "
+        f"{tm.POST_BURN_HOPS} hops): ids equal, max abs err {max_err:.3g}; "
+        f"acceptance {acc:.3f}; seconds kernel {secs['kernel']:.3f}, plain "
+        f"on the card {secs['plain']:.1f}, plain on the CPU "
+        f"{secs['cpu']:.1f}")
+
+    # timing: the post-burn-in walk from the checked carry
+    cb = dict(P=P, size=data.counts25_t.element_size())
+    out = {}
+    for label, i0, n, hops in (("post", post0, SB_TIMED_STEPS,
+                                tm.POST_BURN_HOPS),
+                               ("burn", 0, SB_TIMED_STEPS, burn_hops)):
+        noise = tm.draw_noise(seeds, i0, i0 + n, K, hops, dev)
+        seg = (mask_t.to(dev), torch.arange(i0, i0 + n, device=dev),
+               torch.from_numpy(sd_all[i0:i0 + n]).to(dev), noise,
+               data.path_map_t, data.counts25_t, data.tree, data.con,
+               data.freq)
+        c0 = carry["kernel"]
+        ms = cuda_ms(lambda: tm.run_segment(*(x.clone() for x in c0), *seg),
+                     reps=5)
+        bms, by, stream_ms = tree_bound_ms(mask, n, R, cb, hops)
+        out[label] = dict(ms=ms, steps=n, hops=hops, bound_ms=bms,
+                          bound_by=by, streamed_ms_a_step=stream_ms)
+        if label == "post":
+            out[label]["plain_ms"] = cuda_ms(
+                lambda: tm.run_segment_plain(*(x.clone() for x in c0), *seg),
+                reps=1, warmup=0)
+        log(f"tree kernel, {'post-burn-in' if label == 'post' else 'burn-in'}"
+            f" walk ({hops} hops): "
+            f"{ms:.3f} ms for {n} steps = {1e3 * ms / n:.2f} us a step; "
+            f"bound {bms:.4f} ms ({by}; {100 * bms / ms:.2f} %), "
+            f"{stream_ms * 1e3:.3f} us a step if every slice streamed "
+            f"from HBM"
+            + (f"; plain on the card {out[label]['plain_ms'] / n:.2f} ms a "
+               f"step" if "plain_ms" in out[label] else "")
+            + f"; on {smi}")
+    # one segment as the runner cuts the post-burn-in walk
+    S_run = tm.segment_plan(SB_ITER + 1, SB_BURNIN, kw["num_paths"], B,
+                            K)[-2]
+    n = S_run[1] - S_run[0]
+    noise = tm.draw_noise(seeds, S_run[0], S_run[1], K, S_run[2], dev)
+    seg = (mask_t.to(dev), torch.arange(S_run[0], S_run[1], device=dev),
+           torch.from_numpy(sd_all[S_run[0]:S_run[1]]).to(dev), noise,
+           data.path_map_t, data.counts25_t, data.tree, data.con, data.freq)
+    c0 = carry["kernel"]
+    out["segment"] = dict(steps=n, ms=cuda_ms(
+        lambda: tm.run_segment(*(x.clone() for x in c0), *seg), reps=2))
+    log(f"tree kernel, one runner segment of {n} steps: "
+        f"{out['segment']['ms']:.2f} ms on {smi}")
+    return dict(max_abs_err=max_err, acceptance=acc, check_s=secs,
+                B=B, K=K, R=R, P=P, **out)
+
+
+def phase_soibean(dev, out_dir, clock):
+    from vgan_tpu_torch import cli
+    from vgan_tpu_torch.infer import tree_mcmc as tm
+    from vgan_tpu_torch.mapper import sw
+    from vgan_tpu_torch.utils import profiling
+
+    db_dir, fq, planted, parents, n_reads = build_soibean_world(out_dir)
+    prefix = os.path.join(out_dir, "sb_")
+    argv = ["soibean", "--soibean_dir", db_dir, "--dbprefix", SB_PREFIX,
+            "-fq1", fq, "-o", prefix, "--chains", str(SB_CHAINS), "--iter",
+            str(SB_ITER), "--burnin", str(SB_BURNIN), "--device", str(dev),
+            "--profile"]
+    smi = clock.smi
+    # each run's k-sweep call: its arguments and its seconds; the warm-up
+    # run's SW kernel calls: their inputs and outputs
+    ksweep, calls = tm.run_tree_mcmc_ksweep, []
+    kernel, sw_calls = sw.gather_score_hash, []
+
+    def keeping(*args, **kw):
+        t0 = time.perf_counter()
+        out = ksweep(*args, **kw)
+        calls.append(((args, kw), time.perf_counter() - t0))
+        return out
+
+    def keeping_sw(*args):
+        out = kernel(*args)
+        sw_calls.append((args, out))
+        return out
+
+    profiling.enable()
+    runs = []
+    sw.reset_launches()
+    tm.reset_launches()
+    tm.run_tree_mcmc_ksweep = keeping
+    try:
+        for i in range(3):  # one warm-up run, two timed
+            for f in os.listdir(out_dir):
+                if f.startswith("sb_"):
+                    os.remove(os.path.join(out_dir, f))
+            profiling.PROFILER.stages.clear()
+            sw.gather_score_hash = kernel if i else keeping_sw
+            t0 = time.perf_counter()
+            if cli.main(argv) != 0:
+                raise AssertionError("cli soibean failed")
+            wall = time.perf_counter() - t0
+            sw.gather_score_hash = kernel
+            st = {k: profiling.PROFILER.stages[k].seconds
+                  for k in ("map", "analyse", "tree_mcmc")}
+            (args, kw), sampler_s = calls[-1]
+            tree = args[0]
+            sig = [tree.names[n] for n in args[3][-1][0]]
+            shares = check_soibean_outputs(prefix, planted, parents, sig)
+            rows = sum(s.shape[0] for s in args[3])
+            runs.append(dict(wall_s=wall, stages_s=st, sampler_s=sampler_s,
+                             rows=rows, shares=shares))
+            e2e_s = st["map"] + st["analyse"] + st["tree_mcmc"]
+            log(f"soibean run {i} ({'warm-up' if i == 0 else 'timed'}): "
+                f"{wall:.2f} s wall; stages {json.dumps(st)}; "
+                f"{n_reads / e2e_s:.1f} reads/s over map + analyse + "
+                f"tree_mcmc; k-sweep sampler {sampler_s:.2f} s for {rows} "
+                f"rows x {SB_ITER + 1} steps; k=3 best chain "
+                + json.dumps(shares))
+    finally:
+        tm.run_tree_mcmc_ksweep = ksweep
+        sw.gather_score_hash = kernel
+    launches = dict(sw.LAUNCHES, **tm.LAUNCHES)
+    if launches["tree_mcmc_segment"] < 1 or launches["gather_score_hash"] < 1:
+        raise AssertionError(f"soibean runs launched {launches}")
+    log(f"soibean: signature paths = planted {planted} and the k=3 best "
+        f"chain on them in all runs; kernel launches in the 3 runs: "
+        f"{launches}")
+    sb_sw = check_sw_calls("soibean", sw_calls, clock)
+    tree_kernel = check_tree_kernel(dev, calls[-1][0], smi)
+    timed = runs[1:]
+    e2e = [n_reads / sum(r["stages_s"][k] for k in ("map", "analyse",
+                                                    "tree_mcmc"))
+           for r in timed]
+    iters = [r["rows"] * (SB_ITER + 1) / r["stages_s"]["tree_mcmc"]
+             for r in timed]
+    sampler = [r["rows"] * (SB_ITER + 1) / r["sampler_s"] for r in timed]
+    log(f"soibean: soibean_e2e_reads_per_s "
+        f"{', '.join(f'{x:.1f}' for x in e2e)}; soibean_mcmc_iters_per_s "
+        f"{', '.join(f'{x:.0f}' for x in iters)} (the sampler alone "
+        f"{', '.join(f'{x:.0f}' for x in sampler)}) on {smi}")
+    return dict(launches=launches["tree_mcmc_segment"],
+                sw_launches=launches["gather_score_hash"], runs=runs,
+                kernel=tree_kernel, sw=sb_sw, reads_per_s=e2e,
+                mcmc_iters_per_s=iters, sampler_iters_per_s=sampler)
+
+
 # ----------------------------------------------------------------- main
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "vgan_tpu_torch")):
@@ -1026,6 +1382,10 @@ def main() -> int:
         e2e = phase_e2e(dev, tmp, clock)
     log(f"e2e: {', '.join(f'{x:.0f}' for x in e2e['reads_per_s'])} reads/s "
         f"(map+score, {N_READS} reads, {N_HAPS} paths) on {smi}")
+    # phase 6 runs before phase 5, whose torch.profiler pass slows every
+    # later launch of the process
+    with tempfile.TemporaryDirectory(prefix="vgan_smoke_soibean_") as tmp:
+        sb = phase_soibean(dev, tmp, clock)
     with tempfile.TemporaryDirectory(prefix="vgan_smoke_euka_") as tmp:
         eu = phase_euka(dev, tmp, clock)
     log(f"euka: euka_realdb_e2e_reads_per_s "
@@ -1043,12 +1403,18 @@ def main() -> int:
         euka_mcmc_iters_per_s=eu["mcmc_iters_per_s"],
         euka_cli_wall_s=eu["cli_wall_s"],
         euka_mapper_stage_s=[r["stages"] for r in eu["runs"]],
-        euka_card_vs_cpu=eu["compare"], euka_profile=eu["profile"])))
+        euka_card_vs_cpu=eu["compare"], euka_profile=eu["profile"],
+        soibean_e2e_reads_per_s=sb["reads_per_s"],
+        soibean_mcmc_iters_per_s=sb["mcmc_iters_per_s"],
+        soibean_sampler_iters_per_s=sb["sampler_iters_per_s"],
+        soibean_runs=sb["runs"], soibean_tree_kernel=sb["kernel"],
+        soibean_sw_calls=sb["sw"])))
     # launches: sw_scores from the mapper's object path, gather_score_hash
-    # from the HaploCart and euka CLI runs (each counted from 0 just
-    # before its runs); times and bounds at the timing shape and at the
-    # mapper's pool batch
-    t_sw, t_gsh = k["sw"], k["gsh"]["pool"]
+    # from the HaploCart, soibean and euka CLI runs, tree_mcmc_segment from
+    # the soibean CLI runs (each counted from 0 just before its runs);
+    # times and bounds at the timing shape, at the mapper's pool batch and
+    # over SB_TIMED_STEPS post-burn-in steps of the soibean k-sweep batch
+    t_sw, t_gsh, t_tree = k["sw"], k["gsh"]["pool"], sb["kernel"]["post"]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "sw_scores_kernel",
@@ -1069,14 +1435,28 @@ def main() -> int:
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
         "launches": (e2e["launches"]["gather_score_hash"]
+                     + sb["sw_launches"]
                      + eu["launches"]["gather_score_hash"]),
         "max_abs_err": max(k["max_abs_err"]["gather_score_hash"],
                            e2e["sw"]["max_abs_err"],
+                           sb["sw"]["max_abs_err"],
                            eu["compare"]["sw"]["max_abs_err"]),
         "ms": t_gsh["ms"],
         "plain_ms": t_gsh["plain_ms"],
         "bound_ms": t_gsh["bound_ms"],
         "bound_by": t_gsh["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "tree_mcmc_segment_kernel",
+        "route": "cuda",
+        "source": TREE_SOURCE,
+        "replaces": TREE_REPLACES,
+        "launches": sb["launches"],
+        "max_abs_err": sb["kernel"]["max_abs_err"],
+        "ms": t_tree["ms"],
+        "plain_ms": t_tree["plain_ms"],
+        "bound_ms": t_tree["bound_ms"],
+        "bound_by": t_tree["bound_by"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -214,3 +214,103 @@ def write_gfa(graph, path):
             steps = ",".join(f"{n + m}{'-' if r else '+'}"
                              for n, r in zip(sn, sr))
             f.write(f"P\t{name}\t{steps}\t*\n")
+
+
+# --------------------------------------------------------- soibean worlds
+def random_tree(n_leaves, seed, lo=0.01, hi=0.3):
+    """A random rooted binary tree: leaves L0..L{n-1} joined pairwise at
+    random under internal nodes N0.. (the root is the last), branch
+    lengths uniform in [lo, hi]. Returns (newick, children, length,
+    root): children maps a name to its child names, length a non-root
+    name to its branch length."""
+    rng = np.random.default_rng(seed)
+    active = [f"L{i}" for i in range(n_leaves)]
+    children, length = {}, {}
+    for t in range(n_leaves - 1):
+        i, j = sorted(rng.choice(len(active), size=2, replace=False))
+        b = active.pop(j)
+        a = active.pop(i)
+        name = f"N{t}"
+        children[name] = [a, b]
+        for c in (a, b):
+            length[c] = float(rng.uniform(lo, hi))
+        active.append(name)
+    root = active[0]
+
+    def nwk(n):
+        kids = children.get(n)
+        body = f"({','.join(nwk(c) for c in kids)})" if kids else ""
+        return body + n + (f":{length[n]:.6f}" if n in length else "")
+
+    return nwk(root) + ";", children, length, root
+
+
+def build_tree_graph(synth, tree_world, n_bp, sites_per_unit, node_len=8,
+                     seed=0):
+    """One path per tree node over a seeded random backbone, with
+    phylogenetic variants: each branch brings max(1, round(length *
+    sites_per_unit)) new single-base variants on distinct backbone nodes
+    (graph/synth.py's bubbles), and a node's path carries every variant
+    on its way from the root. Returns (graph, private) with private the
+    variant count of each node's own branch."""
+    _nwk, children, length, root = tree_world
+    rng = np.random.default_rng(seed)
+    ref = backbone(n_bp, seed)
+    n_backbone = (n_bp + node_len - 1) // node_len
+    segments = {i + 1: ref[i * node_len:(i + 1) * node_len]
+                for i in range(n_backbone)}
+    pool = list(rng.permutation(np.arange(2, n_backbone)))
+    alt_of, carried, private = {}, {root: set()}, {root: 0}
+    links = [(i, False, i + 1, False) for i in range(1, n_backbone)]
+    order = [root]
+    for n in order:  # breadth first: parents before children
+        for c in children.get(n, []):
+            order.append(c)
+            own = set()
+            for _ in range(max(1, round(length[c] * sites_per_unit))):
+                if not pool:
+                    break
+                nid = int(pool.pop())
+                seq = segments[nid]
+                off = int(rng.integers(0, len(seq)))
+                alt = "ACGT"[("ACGT".find(seq[off]) + 1
+                              + int(rng.integers(0, 3))) % 4]
+                alt_id = n_backbone + 1 + len(alt_of)
+                segments[alt_id] = seq[:off] + alt + seq[off + 1:]
+                alt_of[nid] = alt_id
+                links += [(nid - 1, False, alt_id, False),
+                          (alt_id, False, nid + 1, False)]
+                own.add(nid)
+            carried[c] = carried[n] | own
+            private[c] = len(own)
+    paths = [(n, [(alt_of[i] if i in carried[n] else i, False)
+                  for i in range(1, n_backbone + 1)]) for n in order]
+    return synth._graph_from_parts(segments, paths, links), private
+
+
+def write_soibean_db(out_dir, prefix, graph, newick, base_freqs):
+    """<out_dir>/<prefix>.npz, soibean_db.baseFreq and
+    tree_dir/<prefix>.new.dnd (the layout `vgan soibean --soibean_dir`
+    reads). Returns out_dir."""
+    d = str(out_dir)
+    os.makedirs(os.path.join(d, "tree_dir"), exist_ok=True)
+    graph.save(os.path.join(d, prefix + ".npz"))
+    with open(os.path.join(d, "soibean_db.baseFreq"), "w") as f:
+        f.write(f"{prefix} " + " ".join(f"{x:.6f}" for x in base_freqs)
+                + "\n")
+    with open(os.path.join(d, "tree_dir", prefix + ".new.dnd"), "w") as f:
+        f.write(newick + "\n")
+    return d
+
+
+def write_source_fastq(synth, graph, path, mix, read_len=64, seed=60):
+    """Reads of each (path name, n_reads) in `mix`, named <name>_r<i>,
+    as FASTQ; returns them."""
+    reads = []
+    for i, (name, n) in enumerate(mix):
+        for r in synth.sample_reads(graph, graph.path_names.index(name), n,
+                                    read_len=read_len, seed=seed + i):
+            r.name = f"{name}_{r.name}"
+            reads.append(r)
+    write_fastq(path, reads)
+    return reads

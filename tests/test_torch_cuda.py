@@ -1,6 +1,7 @@
-"""CUDA kernels of the port (csrc/sw.cu) against their plain torch
-versions, and the device paths of the mapper, the euka scorer and the
-abundance MCMC against the same code on the CPU, on the card. Marked
+"""CUDA kernels of the port (csrc/sw.cu, csrc/tree_mcmc.cu) against their
+plain torch versions, and the device paths of the mapper, the euka
+scorer, the abundance MCMC and soibean's k-sweep against the same code
+on the CPU, on the card. Marked
 `cuda`: they skip where torch.cuda.is_available() is false. This file imports neither jax nor
 vgan_tpu, so it also runs where jax is absent:
 
@@ -263,3 +264,169 @@ def test_run_mcmc_on_card_equals_cpu(dev):
     cpu = run_mcmc(n, slog, init, device="cpu", **kw)
     np.testing.assert_allclose(card.samples, cpu.samples, rtol=1e-12)
     np.testing.assert_allclose(card.estimate, cpu.estimate, rtol=1e-12)
+
+
+# ------------------------------------------------------------- tree MCMC
+# a three-child root, a polytomy and leaves at three depths: the walk
+# meets leaf and root bounces, parent and sibling moves
+TREE_NEWICK = ("((A:0.2,B:0.25,C:0.1)N1:0.3,((D:0.22,E:0.18)N2:0.28,"
+               "G:0.4)N3:0.1,F:0.05)R;")
+TREE_FREQS = dict(A=0.3, C=0.2, G=0.22, T=0.28, R=0.52, Y=0.48, M=1.0)
+# kernel vs plain: node ids exact; f64 exp/log/normcdfinv of CUDA's math
+# library and another order of the sums over reads and counts differ in
+# the last bits only
+TREE_RTOL = 1e-10
+
+
+def _tree_inputs(tree, R, counts_scale, seed=5):
+    rng = np.random.default_rng(seed)
+    N = tree.n_nodes
+    leaves = np.nonzero(tree.n_children == 0)[0]
+    path_map = np.full((R, N), -40.0)
+    path_map[: R // 2, leaves[0]] = -20.0
+    path_map[R // 2:, leaves[-1]] = -22.0
+    path_map += rng.uniform(-0.5, 0.5, size=(R, N))
+    counts25 = rng.integers(0, 4, size=(R, N, 25)) * counts_scale
+    return path_map, counts25
+
+
+def _assert_segments_equal(got, want):
+    (gc, gr), (wc, wr) = got, want
+    for g, w in ((gc[0], wc[0]), (gr[0], wr[0])):
+        assert torch.equal(g.cpu(), w.cpu())
+    for g, w in list(zip(gc[1:], wc[1:])) + list(zip(gr[1:], wr[1:])):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=TREE_RTOL, atol=0)
+
+
+# counts held as uint8, int16 and f64 (the kernel's three count types);
+# R = 700 and 1,500: not multiples of the 512-thread block
+@pytest.mark.parametrize("counts_scale,R,dtype", [
+    (1, 700, torch.uint8), (100, 1500, torch.int16),
+    (0.5, 700, torch.float64),
+])
+def test_tree_mcmc_kernel_equals_plain(dev, counts_scale, R, dtype):
+    """k = 1..3 rows padded to Kmax = 3 with a mask, 60 burn-in steps of
+    20 hops (iteration 0 included) then 140 steps of 8 hops from the
+    carry: the kernel against the plain version on the card and on the
+    CPU, one noise draw for all."""
+    from vgan_tpu_torch.infer import tree_mcmc as tm
+    from vgan_tpu_torch.utils.newick import parse_newick
+
+    tree = parse_newick(TREE_NEWICK)
+    path_map, counts25 = _tree_inputs(tree, R, counts_scale)
+    data = tm.prepare(tree, path_map, counts25, TREE_FREQS, 0.05, dev)
+    assert data.counts25_t.dtype == dtype
+    cpu = tm.prepare(tree, path_map, counts25, TREE_FREQS, 0.05, "cpu")
+    B, K = 6, 3
+    rng = np.random.default_rng(1)
+    mask = np.zeros((B, K), bool)
+    for b in range(B):
+        mask[b, : b % 3 + 1] = True
+    nodes = np.where(mask, rng.integers(0, tree.n_nodes, size=(B, K)), 0)
+    theta = np.where(mask, rng.random((B, K)) + 0.1, 0.0)
+    theta /= theta.sum(1, keepdims=True)
+    sd = torch.from_numpy(tm.sd_schedule(199, 60, tree.n_nodes))
+    # (the kernel, the plain version on the card, the plain version on
+    # the CPU): each its own carry
+    runs = {"kernel": (tm.run_segment, data),
+            "plain": (tm.run_segment_plain, data),
+            "cpu": (tm.run_segment, cpu)}
+    carry = {name: (torch.from_numpy(nodes.astype(np.int32)),
+                    torch.full((B, K), 0.5, dtype=torch.float64),
+                    torch.from_numpy(theta),
+                    torch.full((B,), -2000.0, dtype=torch.float64))
+             for name in runs}
+    carry = {name: tuple(x.to(runs[name][1].device) for x in c)
+             for name, c in carry.items()}
+    tm.reset_launches()
+    for i0, i1, hops in ((0, 60, 20), (60, 200, 8)):
+        noise = tm.draw_noise(list(range(B)), i0, i1, K, hops, "cpu")
+        out = {}
+        for name, (fn, dd) in runs.items():
+            on = dd.device
+            out[name] = fn(
+                *carry[name], torch.from_numpy(mask).to(on),
+                torch.arange(i0, i1, device=on), sd[i0:i1].to(on),
+                tm.Noise(*(x.to(on) for x in noise)), dd.path_map_t,
+                dd.counts25_t, dd.tree, dd.con, dd.freq)
+            carry[name] = out[name][0]
+        torch.cuda.synchronize()
+        _assert_segments_equal(out["kernel"], out["plain"])
+        _assert_segments_equal(out["kernel"], out["cpu"])
+    assert tm.LAUNCHES["tree_mcmc_segment"] == 2
+    rec_ll = out["kernel"][1][3].cpu().numpy()
+    acc = np.diff(rec_ll, axis=1) != 0
+    assert 0 < acc.mean() < 1
+
+
+def test_tree_mcmc_kernel_large_tree(dev):
+    """A complete binary tree of 4,096 leaves (8,191 nodes, the root 0,
+    node i's children 2i + 1 and 2i + 2): the tree tables exceed the
+    kernel's shared-memory share and are read from device memory."""
+    from vgan_tpu_torch.infer import tree_mcmc as tm
+    from vgan_tpu_torch.utils.newick import Tree
+
+    N = 8191
+    idx = np.arange(N)
+    inner = idx < N // 2
+    children = np.full((N, 2), -1, dtype=np.int32)
+    children[inner, 0] = 2 * idx[inner] + 1
+    children[inner, 1] = 2 * idx[inner] + 2
+    tree = Tree(names=[f"n{i}" for i in idx],
+                parent=np.where(idx > 0, (idx - 1) // 2, -1).astype(np.int32),
+                dist=np.where(idx > 0, 0.05 + 0.001 * (idx % 50), 0.0),
+                children=children,
+                n_children=np.where(inner, 2, 0).astype(np.int32), root=0)
+    path_map, counts25 = _tree_inputs(tree, 40, 1)
+    data = tm.prepare(tree, path_map, counts25, TREE_FREQS, 0.05, dev)
+    B, K, S = 4, 2, 80
+    nodes = torch.tensor([[0, 5], [100, 8000], [4000, 1], [8190, 3]],
+                         dtype=torch.int32, device=dev)
+    carry = (nodes, torch.full((B, K), 0.5, dtype=torch.float64, device=dev),
+             torch.full((B, K), 0.5, dtype=torch.float64, device=dev),
+             torch.full((B,), -900.0, dtype=torch.float64, device=dev))
+    sd = torch.full((S,), 3.0, dtype=torch.float64, device=dev)
+    noise = tm.draw_noise([1, 2, 3, 4], 0, S, K, 32, dev)
+    args = (torch.ones((B, K), dtype=torch.bool, device=dev),
+            torch.arange(S, device=dev), sd, noise, data.path_map_t,
+            data.counts25_t, data.tree, data.con, data.freq)
+    got = tm.run_segment(*(x.clone() for x in carry), *args)
+    want = tm.run_segment_plain(*carry, *args)
+    torch.cuda.synchronize()
+    _assert_segments_equal(got, want)
+
+
+def test_tree_ksweep_on_card_equals_cpu(dev, monkeypatch):
+    """The k-sweep runner (k = 1..3, 2 chains, 5 segments across the
+    burn-in boundary) on the card against the CPU, both given the noise
+    and initial proportions drawn on the CPU."""
+    from vgan_tpu_torch.infer import tree_mcmc as tm
+    from vgan_tpu_torch.utils.newick import parse_newick
+
+    draw, theta0 = tm.draw_noise, tm.init_theta
+    monkeypatch.setattr(tm, "draw_noise", lambda *a: tm.Noise(
+        *(x.to(a[-1]) for x in draw(*a[:-1], "cpu"))))
+    monkeypatch.setattr(tm, "init_theta",
+                        lambda s, k, d: theta0(s, k, "cpu").to(d))
+    tree = parse_newick(TREE_NEWICK)
+    path_map, counts25 = _tree_inputs(tree, 300, 1)
+    srcs = [np.array([[4], [1]]), np.array([[4, 9], [2, 7]]),
+            np.array([[4, 9, 0], [3, 3, 5]])]
+    kw = dict(con=0.05, max_iter=600, burn=150, num_paths=tree.n_nodes,
+              init_logls=[-900.0, -880.0, -870.0],
+              seeds_per_k=[[10, 11], [20, 21], [30, 31]])
+    monkeypatch.setattr(tm, "SEGMENT_BYTES", 100 * tm._bytes_per_iter(6, 3,
+                                                                      20))
+    tm.reset_launches()
+    card = tm.run_tree_mcmc_ksweep(tree, path_map, counts25, srcs,
+                                   TREE_FREQS, device=dev, **kw)
+    assert tm.LAUNCHES["tree_mcmc_segment"] == len(tm.segment_plan(
+        601, 150, tree.n_nodes, 6, 3)) >= 5
+    cpu = tm.run_tree_mcmc_ksweep(tree, path_map, counts25, srcs,
+                                  TREE_FREQS, device="cpu", **kw)
+    for g, w in zip(card, cpu):
+        np.testing.assert_array_equal(g.node, w.node)
+        for f in ("pos", "theta", "loglike"):
+            np.testing.assert_allclose(getattr(g, f), getattr(w, f),
+                                       rtol=TREE_RTOL, atol=0)

@@ -45,6 +45,19 @@ eout = os.path.join(out, "eu")
 assert cli.main(["euka", "--euka_dir", edir, "-fq1", efq, "-o", eout,
                  "--minBins", "2", "--iter", "200", "--burnin", "10",
                  "--device", "cpu"]) == 0
+tw = world.random_tree(8, 3)
+sg, priv = world.build_tree_graph(synth, tw, 1500, 40, seed=2)
+sdb = world.write_soibean_db(os.path.join(out, "sdb"), "fam", sg, tw[0],
+                             [0.25] * 4)
+leaves = sorted((n for n in priv if n.startswith("L")),
+                key=lambda n: -priv[n])[:2]
+sfq = os.path.join(out, "sb.fq")
+world.write_source_fastq(synth, sg, sfq, [(leaves[0], 60), (leaves[1], 30)])
+assert cli.main(["soibean", "--soibean_dir", sdb, "--dbprefix", "fam",
+                 "-fq1", sfq, "-o", os.path.join(out, "sb_"), "--iter", "200",
+                 "--burnin", "40", "--chains", "2", "--device", "cpu"]) == 0
+print("SOIBEAN", " ".join(sorted(f for f in os.listdir(out)
+                                 if f.startswith("sb_"))))
 leaked = [m for m in sys.modules
           if (m == "jax" or m.startswith(("jax.", "vgan_tpu.")))
           and sys.modules[m] is not None]
@@ -71,6 +84,13 @@ def test_port_runs_without_jax(tmp_path):
     assert [d[0] for d in det] == ["Taxon0", "Taxon1"]
     assert all(d[1] == "yes" and len(d) == 8 for d in det)
     assert 0.5 < float(det[0][3]) < 0.85
+    # soibean's five file kinds for k = 1 and 2
+    sb = [l for l in r.stdout.splitlines() if l.startswith("SOIBEAN")][0]
+    files = set(sb.split()[1:])
+    for k in (1, 2):
+        assert {f"sb_ProportionEstimates{k}.txt", f"sb_BranchEstimate{k}.txt",
+                f"sb_Diagnostics{k}0.txt", f"sb_Result{k}1.mcmc",
+                f"sb_Trace{k}1.detail.mcmc"} <= files, files
 
 
 def test_no_jax_or_vgan_tpu_imports_in_port():

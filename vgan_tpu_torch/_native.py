@@ -1,11 +1,12 @@
-"""Builds and loads the port's two native libraries at first use.
+"""Builds and loads the port's native libraries at first use.
 
 * The host library: g++ on the C++ sources of the JAX package
   (`vgan_tpu/cpp/*.cpp`, read by path — they are not Python and import
   nothing) with that directory's Makefile flags. It holds the seeding,
   finalize, graph-alignment, reconstruction, FASTQ and GAM codecs.
-* The CUDA kernel library: nvcc on `csrc/sw.cu` for sm_90a, a plain C
-  interface loaded with ctypes.
+* The CUDA kernel libraries: nvcc on `csrc/sw.cu` (Smith-Waterman) and
+  on `csrc/tree_mcmc.cu` (soibean's tree MCMC), each for sm_90a, a plain
+  C interface loaded with ctypes.
 
 Both land in `_build/` beside this file (gitignored), named by a hash
 of their sources and flags, so an edited source rebuilds and a stale
@@ -36,6 +37,7 @@ HOST_SRCS = [
 HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-shared"]
 HOST_LIBS = ["-lz", "-lpthread"]
 SW_SRC = os.path.join(_PKG_DIR, "csrc", "sw.cu")
+TREE_MCMC_SRC = os.path.join(_PKG_DIR, "csrc", "tree_mcmc.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -125,4 +127,31 @@ def sw_lib() -> ctypes.CDLL:
             vp,                        # stream
         ]
         _loaded["sw"] = lib
+    return lib
+
+
+def tree_mcmc_lib() -> ctypes.CDLL:
+    """The CUDA tree-MCMC kernel (csrc/tree_mcmc.cu), built with nvcc
+    for sm_90a on first use, with its C entry point typed."""
+    lib = _loaded.get("tree_mcmc")
+    if lib is None:
+        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        nvcc = _find_tool("nvcc", [os.path.join(cuda_home, "bin", "nvcc")])
+        path = _build("vgan_tree_mcmc", nvcc, NVCC_FLAGS, [TREE_MCMC_SRC],
+                      [])
+        lib = ctypes.CDLL(path)
+        vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.tree_mcmc_segment_launch.restype = i32
+        lib.tree_mcmc_segment_launch.argtypes = (
+            [vp] * 4                   # carry: nodes, pos, theta, ll
+            + [vp] * 7                 # mask, iters, sd, four noise arrays
+            + [vp, vp, i32]            # path_map_t, counts25_t, count dtype
+            + [vp] * 5                 # parent, dist, children, n_children,
+                                       # freq
+            + [f64]                    # con
+            + [vp] * 4                 # the four trace arrays
+            + [i32] * 8                # B, S, K, hops, R, P, N, Cc
+            + [vp]                     # stream
+        )
+        _loaded["tree_mcmc"] = lib
     return lib

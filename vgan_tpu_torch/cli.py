@@ -6,14 +6,20 @@
         -o out_prefix [--device cuda|cpu]
     python -m vgan_tpu_torch.cli gam2prof --euka_dir <dir> -g in.gam \\
         -o out_prefix
+    python -m vgan_tpu_torch.cli soibean --soibean_dir <dir> \\
+        --dbprefix <taxon> -fq1 reads.fq -o out_prefix [--device cuda|cpu]
+    python -m vgan_tpu_torch.cli build-db <in.gfa|.vg|.og|.gbz|.gg|.xg> <out_dir>
+    python -m vgan_tpu_torch.cli build-taxon-db <db_dir> <taxon> [out_dir]
     python -m vgan_tpu_torch.cli version
 
 The flags are vgan_tpu.cli's (the reference's manual single-dash style,
-`src/HaploCart.cpp:87-209`, `src/Euka.cpp:193-345`), without `--devices`
-and with `--device`: where the mapper's Smith-Waterman kernel, the
-likelihood scorers and euka's abundance MCMC run. It defaults to
-`cuda`, and asking for CUDA where there is none raises; `--device cpu`
-runs the plain torch versions. `gam2prof` runs on the host only.
+`src/HaploCart.cpp:87-209`, `src/Euka.cpp:193-345`,
+`src/soibean.cpp:260-402`), without `--devices` and with `--device`:
+where the mapper's Smith-Waterman kernel, the likelihood scorers and the
+MCMC samplers (euka's abundance chain, soibean's tree chains) run. It
+defaults to `cuda`, and asking for CUDA where there is none raises;
+`--device cpu` runs the plain torch versions. `gam2prof`, `build-db` and
+`build-taxon-db` run on the host only.
 """
 from __future__ import annotations
 
@@ -67,8 +73,14 @@ def main(argv: List[str] | None = None) -> int:
         return cmd_euka(rest)
     if cmd == "gam2prof":
         return cmd_gam2prof(rest)
-    print(f"unknown subcommand {cmd} (the port runs haplocart, euka and "
-          "gam2prof)", file=sys.stderr)
+    if cmd == "soibean":
+        return cmd_soibean(rest)
+    if cmd == "build-db":
+        return cmd_build_db(rest)
+    if cmd == "build-taxon-db":
+        return cmd_build_taxon_db(rest)
+    print(f"unknown subcommand {cmd} (the port runs haplocart, euka, "
+          "gam2prof, soibean, build-db and build-taxon-db)", file=sys.stderr)
     return 1
 
 
@@ -375,28 +387,243 @@ def cmd_gam2prof(args: List[str]) -> int:
     return 0
 
 
-# graph formats the JAX package reads and the port does not yet
-_NOT_PORTED = (".vg", ".og", ".gbz", ".gg", ".xg")
+def cmd_soibean(args: List[str]) -> int:
+    from .io import fastx, gam as gamio
+    from .mapper.batch_map import (
+        load_native, table_from_alignments, table_from_gam,
+    )
+    from .mapper.giraffe import BatchedMapper as Mapper
+    from .pipelines import soibean as sb
+    from .pipelines.soibean_runner import run_soibean_inference
+    from .utils.device import resolve_device
+    from .utils.newick import read_newick
+    from .utils.profiling import PROFILER
+
+    sbdir = ""
+    dbprefix = ""
+    treedir = ""
+    fq1 = fq2 = gamfile = ""
+    out = "soibean_output"
+    n_iter, burnin, chains = 500000, 75000, 4
+    spec_k = None
+    penalty = 7
+    k, w = 20, 10
+    interleaved = False
+    run_mcmc_flag = True
+    alignment_detail = False
+    path_thres = 0
+    rand_start = False
+    safari = False
+    checkpoint_path = None
+    checkpoint_every = 100000
+    device = "cuda"
+    i = 0
+    while i < len(args):
+        a = args[i]
+        if a == "--dbprefix":
+            dbprefix = _take(args, i); i += 2
+        elif a in ("--sbdir", "--soibean_dir"):
+            sbdir = _take(args, i); i += 2
+        elif a == "--treedir":
+            treedir = _take(args, i); i += 2
+        elif a == "-fq1":
+            fq1 = _take(args, i); i += 2
+        elif a == "-fq2":
+            fq2 = _take(args, i); i += 2
+        elif a == "-g":
+            gamfile = _take(args, i); i += 2
+        elif a == "-o":
+            out = _take(args, i); i += 2
+        elif a == "--iter":
+            n_iter = int(_take(args, i)); i += 2
+        elif a == "--burnin":
+            burnin = int(_take(args, i)); i += 2
+        elif a == "--chains":
+            chains = int(_take(args, i)); i += 2
+        elif a == "-k":
+            spec_k = int(_take(args, i)); i += 2
+        elif a == "-P":
+            penalty = int(_take(args, i)); i += 2
+        elif a == "-t":
+            _check_threads(_take(args, i), "soibean"); i += 2
+        elif a == "-i":
+            interleaved = True; i += 1
+        elif a == "--randStart":
+            rand_start = True; i += 1
+        elif a == "--checkpoint":
+            # resumable MCMC: snapshots to <path>.k<k>.c<chain>.npz;
+            # rerunning the same command continues from the snapshot
+            checkpoint_path = _take(args, i); i += 2
+        elif a == "--checkpoint-every":
+            checkpoint_every = int(_take(args, i)); i += 2
+        elif a == "--no-mcmc":
+            run_mcmc_flag = False; i += 1
+        elif a == "--alignment-detail":
+            alignment_detail = True; i += 1
+        elif a == "--pathThres":
+            path_thres = int(_take(args, i)); i += 2
+        elif a in ("--deam5p", "--deam3p"):
+            # accepted but inert even in the reference: the supported-
+            # base damage marginal telescopes to log(0.9999999)
+            # regardless of the profile (`src/getLCAfromGAM.h:340-353`)
+            _take(args, i); i += 2
+        elif a == "-z":
+            _take(args, i); i += 2  # tmpdir, unused here
+        elif a == "-M":
+            _take(args, i); i += 2  # alternative minimizer index file
+        elif a in ("-S", "--SAFARI"):
+            # damage-aware RYmer seeding (functional here; inert in
+            # the reference, `src/soibean.cpp:395-399`)
+            safari = True; i += 1
+        elif a == "--profile":
+            from .utils import profiling
+
+            profiling.enable(); i += 1
+        elif a == "--device":
+            device = _take(args, i); i += 2
+        else:
+            print(f"[soibean] ignoring unknown flag {a}", file=sys.stderr)
+            i += 1
+    dev = resolve_device(device)
+    prefix = os.path.join(sbdir, dbprefix)
+    graph = _load_graph(prefix)
+
+    # columnar path end-to-end (map_reads_table / native GAM decode ->
+    # analyse_table, zero per-read objects) unless --alignment-detail
+    # needs the row-at-a-time TSV writer
+    table = alignments = None
+    columnar = load_native() is not None and not alignment_detail
+    if gamfile:
+        with PROFILER.stage("read_gam"):
+            if columnar:
+                table = table_from_gam(gamfile)
+            if table is None:
+                alignments = gamio.read_gam(gamfile)
+        n_in = table.n if table is not None else len(alignments)
+    else:
+        mapper = Mapper(graph, k=k, w=w, safari=safari, device=dev)
+        reads = fastx.read_fastq(fq1)
+        with PROFILER.stage("map", items=len(reads)):
+            if fq2 and not interleaved:
+                r2 = fastx.read_fastq(fq2)
+                if len(r2) == len(reads):
+                    alignments = mapper.map_read_pairs(reads, r2)
+                else:
+                    alignments = mapper.map_reads(reads + r2)
+            elif interleaved and len(reads) % 2 == 0:
+                alignments = mapper.map_read_pairs(reads[0::2], reads[1::2])
+            elif columnar:
+                table = mapper.map_reads_table(reads)
+            else:
+                alignments = mapper.map_reads(reads)
+        n_in = table.n if table is not None else len(alignments)
+    with PROFILER.stage("analyse", items=n_in):
+        if table is not None:
+            stats = sb.analyse_table(graph, table, penalty=penalty)
+        elif columnar:
+            stats = sb.analyse_table(
+                graph, table_from_alignments(alignments), penalty=penalty
+            )
+        else:
+            stats = sb.analyse_reads(
+                graph, alignments, penalty=penalty,
+                detail_path=out if alignment_detail else "",
+                path_thres=path_thres,
+            )
+    if not run_mcmc_flag:
+        PROFILER.report()
+        return 0
+    tree = read_newick(
+        os.path.join(treedir or os.path.join(sbdir, "tree_dir"),
+                     dbprefix + ".new.dnd")
+    )
+    freqs = sb.load_base_freqs(
+        os.path.join(sbdir, "soibean_db.baseFreq"), dbprefix
+    )
+    with PROFILER.stage("tree_mcmc"):
+        run_soibean_inference(
+            tree, stats, graph.path_names, freqs, out,
+            n_iter=n_iter, burnin=burnin, chains=chains, specified_k=spec_k,
+            rand_start=rand_start,
+            checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every,
+            device=dev,
+        )
+    PROFILER.report()
+    return 0
+
+
+def cmd_build_db(args: List[str]) -> int:
+    """build-db <in.gfa|in.vg|in.og|in.gbz|in.gg|in.xg> <out_dir>:
+    compile a GFA, vg-protobuf, bdsg-ODGI, GBZ, .gg+.gbwt or sdsl .xg
+    graph into the packed graph (<out_dir>/graph.npz)."""
+    if len(args) < 2:
+        raise SystemExit(
+            "usage: vgan build-db in.gfa|in.vg|in.og|in.gbz|in.gg|in.xg"
+            " out_dir"
+        )
+    gfa, out_dir = args[0], args[1]
+    os.makedirs(out_dir, exist_ok=True)
+    g = _load_one_graph(gfa)
+    g.save(os.path.join(out_dir, "graph.npz"))
+    print(
+        f"packed {g.n_nodes} nodes / {g.n_paths} paths -> {out_dir}/graph.npz",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def cmd_build_taxon_db(args: List[str]) -> int:
+    """build-taxon-db <db_dir> <taxon> [out_dir]: subset the per-taxon
+    soibean graph from the super-DB using the clade file's node range
+    (the make_graph_files.sh equivalent,
+    `share/vgan/soibean_dir/make_graph_files.sh`)."""
+    from .db.taxa import build_taxon_db
+
+    if len(args) < 2:
+        raise SystemExit("usage: vgan build-taxon-db db_dir taxon [out_dir]")
+    out = build_taxon_db(
+        args[0], args[1], args[2] if len(args) > 2 else None
+    )
+    print(f"wrote {out}", file=sys.stderr)
+    return 0
 
 
 def _load_one_graph(path: str):
+    """A graph file by its extension, as vgan_tpu.cli routes it:
+    .npz (PackedGraph.save), .vg, .og, .gbz, .gg (+ .gbwt), .xg, else
+    GFA."""
     from .graph.packed import PackedGraph
 
     if path.endswith(".npz"):
         return PackedGraph.load(path)
-    if path.endswith(_NOT_PORTED):
-        fmt = os.path.splitext(path)[1]
-        raise NotImplementedError(
-            f"graph format {fmt} ({path}) is not ported to vgan_tpu_torch "
-            "yet; give the DB as <prefix>.npz or <prefix>.gfa"
-        )
+    if path.endswith(".vg"):
+        from .io.vgformat import read_vg
+
+        return read_vg(path)
+    if path.endswith(".og"):
+        from .io.odgi import read_og
+
+        return read_og(path)
+    if path.endswith(".gbz"):
+        from .io.gbz import load_packed_graph
+
+        return load_packed_graph(path)
+    if path.endswith(".gg"):
+        from .io.gbz import load_packed_graph_gg
+
+        return load_packed_graph_gg(path)
+    if path.endswith(".xg"):
+        from .io.xg import load_packed_graph_xg
+
+        return load_packed_graph_xg(path)
     return PackedGraph.from_gfa(path)
 
 
 def _load_graph(prefix: str):
     """Resolve a graph for a DB prefix as vgan_tpu.cli does:
     <prefix>.{npz,gfa,vg,...}, the path itself, or a graph.{npz,gfa,...}
-    next to it. Only .npz and .gfa load; the other formats raise."""
+    next to it."""
     exts = (".npz", ".gfa", ".vg", ".og", ".gbz", ".giraffe.gbz",
             ".gg", ".xg")
     if prefix.endswith(exts) and os.path.exists(prefix):
