@@ -8,12 +8,12 @@ and prints no result):
 
 1. device  — the card's name, and its name and power limit from
    nvidia-smi; no CUDA device is an error.
-2. build   — the native host library (g++), csrc/sw.cu and
-   csrc/tree_mcmc.cu (nvcc, sm_90a) from the checkout's sources, the
-   three compilers started together; seconds of each build; `cuobjdump -sass`
-   of the SW library, which must show Hopper's DPX max instructions
-   (VIMNMX3, VIADDMNMX) in every instantiation of both kernels, and
-   whose DP step (the straight-line block holding the most VIMNMX3, one
+2. build   — the native host library (g++, vgan_tpu_torch/cpp/),
+   csrc/sw.cu, csrc/tree_mcmc.cu and csrc/keelime.cu (nvcc, sm_90a) from
+   the checkout's sources, the four compilers started together; seconds
+   of each build; `cuobjdump -sass` of the SW library, which must show
+   Hopper's DPX max instructions (VIMNMX3, VIADDMNMX) in every
+   instantiation of both kernels, and whose DP step (the straight-line block holding the most VIMNMX3, one
    a cell) must issue at least the integer-ALU operations a cell that
    the bound counts; the step's operations a cell on each pipe are
    logged.
@@ -86,15 +86,37 @@ and prints no result):
    rtol 1e-10), and timed a step beside its bound, the plain version a
    step on the card over 200 steps. Phase 6 runs before phase 5, whose
    profiler pass slows every later launch of the process.
+7. keelime — a reference-free world at a mitogenome's scale: a seeded
+   random 16,569-bp backbone with four haplotypes (40 variants, 8-bp
+   nodes; tests/test_scale_stress.py:211-216's world), saved as
+   graph.npz; 12,000 64-bp reads of haplotype 1 (~46x) and the C>T / G>A
+   damage profiles of tests/_torch_world.py. `vgan_tpu_torch.cli keelime
+   --device cuda -p hap1 --deam5p .. --deam3p ..` (the RY-space route of
+   aDNA) once to warm up and twice timed: each run must write the four
+   outputs, give a consensus of >= 0.9 x the haplotype's length with
+   >= 0.8 x of it called (not N), and launch both the SW kernel and
+   overlap_best_kernel; keelime_e2e_reads_per_s is the reads over the
+   map + analyse + assemble + consensus stages. One run with `--device
+   cpu` must write the same four outputs (.gz decompressed). Every
+   overlap_best_batch call of the warm-up run (find_overlaps' candidate
+   pairs, then each merge pass) must equal the plain version on the card,
+   the native host scan and the library's conv1d exactly, and is timed
+   beside its bound (overlap_bound_ms). Then `map --device cuda` and
+   `map --device cpu` on the same reads must write equal alignments, and
+   `duprm` must run on the card's GAM. Phase 7 runs after phase 6 and
+   before phase 5.
 
-The kernels line lists the three kernels: gather_score_hash_kernel's
-launches are those of the HaploCart, soibean and euka runs together,
-sw_scores_kernel's those of the object path and
-tree_mcmc_segment_kernel's those of the soibean runs (each counted from
-0 just before its runs); ms, plain_ms and the bound are at the mapper's
+The kernels line lists the four kernels: gather_score_hash_kernel's
+launches are those of the HaploCart, soibean, keelime and euka runs
+together, sw_scores_kernel's those of the object path,
+tree_mcmc_segment_kernel's those of the soibean runs and
+overlap_best_kernel's those of the keelime runs (each counted from 0
+just before its runs); ms, plain_ms and the bound are at the mapper's
 shape (sw_scores: B=32,768 full-length pairs; gather_score_hash: the
-pool batch) and, for the tree kernel, 200 post-burn-in steps of the
-soibean k-sweep batch (12 rows, Kmax 3, 4,000 reads, 255 paths).
+pool batch), for the tree kernel over 200 post-burn-in steps of the
+soibean k-sweep batch (12 rows, Kmax 3, 4,000 reads, 255 paths), and
+for overlap_best_kernel at the find_overlaps batch of the keelime
+warm-up run, with the library's grouped conv1d as library_ms.
 Every timing line names the card and its power limit. The
 second-to-last lines are the nvidia-smi line and one JSON object
 describing the kernels; the last line is
@@ -172,10 +194,24 @@ SB_CHECK_BURN, SB_CHECK_POST, SB_TIMED_STEPS = 200, 800, 200
 # f64 multiply-adds on an H100 SXM: 67 TFLOP/s in the tensor cores
 # (NVIDIA's data sheet), the largest f64 rate the card has
 F64_FMA_PER_S = 67e12 / 2
+# keelime: a mitogenome-length backbone with four haplotypes (40 variants,
+# 8-bp nodes; tests/test_scale_stress.py:211-216's world), 64-bp reads of
+# one haplotype (~46x), the C>T / G>A damage profiles
+KL_SOURCE = "vgan_tpu_torch/csrc/keelime.cu"
+# the XLA program the kernel replaces: _overlap_scores_device
+KL_REPLACES = "vgan_tpu/pipelines/keelime_device.py:41"
+KL_BP, KL_HAPS, KL_VARIANTS, KL_HAP, KL_READS, KL_READ_LEN = (
+    16569, 4, 40, 1, 12000, 64)
+# an overlap cell is a table lookup and an integer add: 2 lane operations
+OVERLAP_OPS_PER_CELL = 2
+
+
+START = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Prints msg behind the seconds since the script started."""
+    print(f"[{time.perf_counter() - START:5.0f} s] {msg}", flush=True)
 
 
 # ----------------------------------------------------------------- timing
@@ -312,13 +348,14 @@ def phase_device():
 
 # ----------------------------------------------------------------- phase 2
 def phase_build():
-    """The three native libraries, their compilers all started together."""
+    """The four native libraries, their compilers all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from vgan_tpu_torch import _native
 
     builds = (("host", _native.host_lib), ("sw.cu", _native.sw_lib),
-              ("tree_mcmc.cu", _native.tree_mcmc_lib))
+              ("tree_mcmc.cu", _native.tree_mcmc_lib),
+              ("keelime.cu", _native.keelime_lib))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {name: pool.submit(build) for name, build in builds}
@@ -1357,6 +1394,329 @@ def phase_soibean(dev, out_dir, clock):
                 mcmc_iters_per_s=iters, sampler_iters_per_s=sampler)
 
 
+# ----------------------------------------------------------------- phase 7
+def build_keelime_world(out_dir):
+    """The keelime DB, reads and damage profiles (see the module
+    docstring), through tests/_torch_world.py's functions over the port's
+    synth. Returns (db_dir, fastq, d5, d3, path name, haplotype length)."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import _torch_world as world
+    from vgan_tpu_torch.graph import synth
+
+    t0 = time.perf_counter()
+    graph, _ = synth.build_haplotype_graph(
+        world.backbone(KL_BP, 7), n_haplotypes=KL_HAPS,
+        n_variants=KL_VARIANTS, seed=3)
+    db_dir = os.path.join(out_dir, "db")
+    os.makedirs(db_dir)
+    graph.save(os.path.join(db_dir, "graph.npz"))
+    fq = os.path.join(out_dir, "reads.fq")
+    world.write_fastq(fq, synth.sample_reads(graph, KL_HAP, KL_READS,
+                                             read_len=KL_READ_LEN, seed=0))
+    d5, d3 = world.write_damage_profiles(out_dir)
+    hap_len = len(graph.path_seq(KL_HAP))
+    log(f"keelime world: {graph.n_paths} haplotypes, {graph.n_nodes} nodes, "
+        f"{KL_READS} {KL_READ_LEN}-bp reads of a {hap_len}-bp haplotype "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return db_dir, fq, d5, d3, graph.path_names[KL_HAP], hap_len
+
+
+def overlap_work(packed, out_len, min_olen):
+    """(cells, bytes) of one overlap_best call: the cells are those the
+    scan of cpp/overlapbest.cpp::best_one visits, counted on the host from
+    the pairs and the results (the whole full-length block; the tail block
+    only where the full block fails, up to the winning start); the bytes
+    are every pair's characters and offsets read once and the two [n]
+    outputs written once."""
+    import numpy as np
+
+    abuf, aoff, bbuf, boff = packed
+    la, lb = np.diff(aoff), np.diff(boff)
+    won = np.asarray(out_len, dtype=np.int64)
+    valid = (la >= min_olen) & (lb > 0)
+    n_full = la - lb + 1
+    full = valid & (n_full > 0) & (lb >= min_olen)
+    cells = int(np.where(full, n_full * lb, 0).sum())
+    tail = valid & ~(full & (won == lb))
+    t0 = np.maximum(n_full, 0)
+    last = np.where(won > 0, la - won, la - min_olen)  # last start scanned
+    count = np.where(tail, np.maximum(last - t0 + 1, 0), 0)
+    # olen = la - s over s = t0 .. last: an arithmetic series
+    cells += int((count * ((la - t0) + (la - last)) // 2).sum())
+    nbytes = len(abuf) + len(bbuf) + 8 * (len(aoff) + len(boff)) + 16 * len(la)
+    return cells, nbytes
+
+
+def overlap_bound_ms(cells, nbytes):
+    """(least milliseconds, "operations" or "bytes"): the cells'
+    OVERLAP_OPS_PER_CELL lane operations over 132 SMs x 128 lanes at
+    1.98 GHz, against the bytes over 3.35 TB/s."""
+    t_ops = cells * OVERLAP_OPS_PER_CELL / (SMS * SM_LANES * CLOCK_HZ)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def conv_library(pairs, min_olen, min_score, dev):
+    """One PyTorch library call computing the overlap scans: the [N, La]
+    score matrix of every chunk as a grouped conv1d (cuDNN, f32, TF32
+    off: every partial sum is a small multiple of 0.5, exact in f32) of
+    one-hot(a) with the table-weighted one-hot(b), on chunks bucketed as
+    JAX's overlap_scores_batch buckets them, then the winner rule as torch
+    ops. Returns (its results, the milliseconds of that one run on the
+    card, its inputs already there)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vgan_tpu_torch.pipelines import keelime_device as kd
+
+    torch.backends.cudnn.allow_tf32 = False
+    lut, t2 = kd.code_tables()
+    lut_t = torch.from_numpy(lut.astype("int64")).to(dev)
+    tab = torch.from_numpy(t2.astype("float32") / 2).to(dev)  # [16, 16]
+    chunks = []
+    for A, B, la, lb, nb in kd.padded_chunks(pairs, 4096, dev):
+        # rows padded to the chunk, or to a multiple of 256: JAX's buckets
+        N = 4096 if nb == 4096 else kd._bucket(nb, 256)
+        A, B = (F.pad(t, (0, 0, 0, N - nb)) for t in (A, B))
+        la, lb = (F.pad(t, (0, N - nb)) for t in (la, lb))
+        La = A.shape[1]
+        Lb = B.shape[1]
+        ca, cb = lut_t[A.long()], lut_t[B.long()]
+        # padding: positions past a's or b's length weigh nothing
+        ca = torch.where(torch.arange(La, device=dev) < la[:, None], ca, -1)
+        x = F.one_hot(ca + 1, kd.N_CODES + 1)[..., 1:].float()  # [N, La, 16]
+        x = F.pad(x.permute(0, 2, 1), (0, Lb)).reshape(1, N * kd.N_CODES,
+                                                      La + Lb)
+        w = tab[:, cb].permute(1, 0, 2)  # [N, 16, Lb]: T[c, b[j]]
+        w = torch.where(torch.arange(Lb, device=dev) < lb[:, None, None], w,
+                        0.0).contiguous()
+        chunks.append((x, w, la, lb, nb, La))
+
+    def run():
+        out = []
+        for x, w, la, lb, nb, La in chunks:
+            S = F.conv1d(x, w, groups=w.shape[0])[0, :, :La]
+            out.append([t[:nb] for t in kd.winner(S, la, lb, min_olen,
+                                                   min_score)])
+        return out
+
+    return timed_once(run)
+
+
+def timed_once(run):
+    """(run()'s [length, score] chunks as one list of (length, score),
+    the milliseconds of that one run on the card by CUDA events)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = run()
+    end.record()
+    torch.cuda.synchronize()
+    ln = torch.cat([r[0] for r in res]).cpu().tolist()
+    sc = torch.cat([r[1] for r in res]).cpu().tolist()
+    return list(zip(ln, sc)), start.elapsed_time(end)
+
+
+def plain_version(pairs, min_olen, min_score, dev):
+    """keelime_device's plain version (overlap_scores_batch's chunks,
+    padded once on the host) on the card: (its results, the milliseconds
+    of that one run)."""
+    from vgan_tpu_torch.pipelines import keelime_device as kd
+
+    chunks = list(kd.padded_chunks(pairs, 4096, dev))
+
+    def run():
+        return [[t[:nb] for t in kd.winner(
+            kd.overlap_scores_plain(A, B, la, lb), la, lb, min_olen,
+            min_score)] for A, B, la, lb, nb in chunks]
+
+    return timed_once(run)
+
+
+def check_overlap_calls(dev, calls, smi):
+    """Each overlap_best_batch call of a keelime run on the card against
+    the plain version on the card and the native scan on the CPU,
+    exactly, and the library's conv1d computing the same; each timed: the
+    kernel on the packed pairs already on the card (CUDA events, 5
+    calls), the plain version and the library on the card (their one
+    checked run, inputs already on the card), the native scan on the
+    host's threads, beside the bound."""
+    import numpy as np
+    import torch
+
+    from vgan_tpu_torch.pipelines import keelime_device as kd
+
+    rows = []
+    for i, (pairs, min_olen, min_score, got) in enumerate(calls):
+        packed = kd.pack_pairs(pairs)
+        on_card = [torch.from_numpy(x).to(dev) for x in packed]
+        on_cpu = [torch.from_numpy(x) for x in packed]
+        t0 = time.perf_counter()
+        nat = kd.overlap_best_packed(*on_cpu, min_olen, min_score)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        native = list(zip(*(t.tolist() for t in nat)))
+        plain, plain_ms = plain_version(pairs, min_olen, min_score, dev)
+        library, library_ms = conv_library(pairs, min_olen, min_score, dev)
+        for name, other in (("plain", plain), ("native", native),
+                            ("library conv1d", library)):
+            if other != got:
+                bad = sum(1 for x, y in zip(got, other) if x != y)
+                raise AssertionError(f"overlap call {i}: kernel vs {name}: "
+                                     f"{bad} of {len(got)} pairs differ")
+        ms = cuda_ms(lambda: kd.overlap_best_packed(*on_card, min_olen,
+                                                    min_score), reps=5)
+        cells, nbytes = overlap_work(packed, [x[0] for x in got], min_olen)
+        bms, by = overlap_bound_ms(cells, nbytes)
+        la = np.diff(packed[1])
+        err = max(abs(g[1] - o[1]) for other in (plain, native)
+                  for g, o in zip(got, other))
+        row = dict(pairs=len(pairs), max_len=int(la.max()),
+                   min_olen=min_olen, cells=cells, bytes=nbytes, ms=ms,
+                   plain_ms=plain_ms, native_ms=native_ms,
+                   library_ms=library_ms, bound_ms=bms, bound_by=by,
+                   max_abs_err=err)
+        rows.append(row)
+        log(f"overlap_best call {i}: {len(pairs)} pairs (longest a "
+            f"{row['max_len']} bp, min_olen {min_olen}), {cells} cells: "
+            f"kernel {ms:.4f} ms ({100 * bms / ms:.2f} % of the {bms:.4f} "
+            f"ms bound, {by}-bound), plain {plain_ms:.2f} ms, native scan "
+            f"{native_ms:.2f} ms, library conv1d {library_ms:.2f} ms; equal "
+            f"to plain, native and the library; on {smi}")
+    return rows
+
+
+def keelime_outputs(prefix):
+    """The four outputs of a keelime run, the .gz files decompressed."""
+    import gzip
+
+    out = {}
+    for name in ("Contig.fa.gz", "Consensus.fa.gz", "ProbabilityMatrix.tsv",
+                 "CountMatrix.tsv"):
+        with open(prefix + name, "rb") as f:
+            data = f.read()
+        out[name] = gzip.decompress(data) if name.endswith(".gz") else data
+    return out
+
+
+def phase_keelime(dev, out_dir, clock):
+    from vgan_tpu_torch import cli
+    from vgan_tpu_torch.io import gam
+    from vgan_tpu_torch.mapper import sw
+    from vgan_tpu_torch.pipelines import keelime_device as kd
+    from vgan_tpu_torch.utils import profiling
+
+    db_dir, fq, d5, d3, path, hap_len = build_keelime_world(out_dir)
+    smi = clock.smi
+
+    def argv(prefix, device):
+        return ["keelime", "--dbdir", db_dir, "--dbprefix", "graph.npz",
+                "-fq1", fq, "-o", prefix, "-p", path, "--deam5p", d5,
+                "--deam3p", d3, "--device", device, "--profile"]
+
+    # the warm-up run keeps each overlap_best_batch call's inputs and result
+    batch, calls = kd.overlap_best_batch, []
+
+    def keeping(pairs, min_olen, min_score, device):
+        out = batch(pairs, min_olen, min_score, device)
+        calls.append((pairs, min_olen, min_score, out))
+        return out
+
+    stage_names = ("map", "analyse", "assemble", "consensus")
+    profiling.enable()
+    runs = []
+    sw.reset_launches()
+    kd.reset_launches()
+    try:
+        for i in range(3):  # one warm-up run, two timed
+            prefix = os.path.join(out_dir, f"kl{i}_")
+            profiling.PROFILER.stages.clear()
+            before = (sw.LAUNCHES["gather_score_hash"],
+                      kd.LAUNCHES["overlap_best"])
+            kd.overlap_best_batch = batch if i else keeping
+            t0 = time.perf_counter()
+            if cli.main(argv(prefix, str(dev))) != 0:
+                raise AssertionError("cli keelime failed")
+            wall = time.perf_counter() - t0
+            kd.overlap_best_batch = batch
+            if sw.LAUNCHES["gather_score_hash"] <= before[0] or \
+                    kd.LAUNCHES["overlap_best"] < before[1] + 2:
+                raise AssertionError(f"keelime run {i} launched "
+                                     f"{dict(sw.LAUNCHES, **kd.LAUNCHES)}")
+            outs = keelime_outputs(prefix)
+            cons = outs["Consensus.fa.gz"].decode().split("\n")[1]
+            called = len(cons) - cons.count("N")
+            if len(cons) < 0.9 * hap_len or called < 0.8 * hap_len:
+                raise AssertionError(f"keelime consensus {len(cons)} bp, "
+                                     f"{called} called, of {hap_len}")
+            st = {k: profiling.PROFILER.stages[k].seconds
+                  for k in stage_names}
+            runs.append(dict(wall_s=wall, stages_s=st, consensus_bp=len(cons),
+                             called_bp=called,
+                             contigs=outs["Contig.fa.gz"].count(b">")))
+            log(f"keelime run {i} ({'warm-up' if i == 0 else 'timed'}): "
+                f"{wall:.2f} s wall; stages {json.dumps(st)}; "
+                f"{KL_READS / sum(st.values()):.0f} reads/s over "
+                f"{' + '.join(stage_names)}; consensus {len(cons)} bp, "
+                f"{called} called, {runs[-1]['contigs']} contigs")
+    finally:
+        kd.overlap_best_batch = batch
+    launches = dict(sw.LAUNCHES, **kd.LAUNCHES)
+    log(f"keelime: kernel launches in the 3 runs: {launches}")
+    card = keelime_outputs(os.path.join(out_dir, "kl0_"))
+    profiling.PROFILER.stages.clear()
+    t0 = time.perf_counter()
+    if cli.main(argv(os.path.join(out_dir, "klcpu_"), "cpu")) != 0:
+        raise AssertionError("cli keelime --device cpu failed")
+    cpu_s = time.perf_counter() - t0
+    cpu_st = {k: profiling.PROFILER.stages[k].seconds for k in stage_names}
+    cpu = keelime_outputs(os.path.join(out_dir, "klcpu_"))
+    bad = [k for k in card if card[k] != cpu[k]]
+    if bad:
+        raise AssertionError(f"keelime card vs cpu: {bad} differ")
+    log(f"keelime --device cpu: {cpu_s:.2f} s wall; stages "
+        f"{json.dumps(cpu_st)}; the four outputs equal the card's")
+    overlap = check_overlap_calls(dev, calls, smi)
+
+    # map on the card and on the CPU, then duprm on the card's GAM
+    recs = {}
+    for d in (str(dev), "cpu"):
+        out = os.path.join(out_dir, f"map_{d.replace(':', '')}.gam")
+        t0 = time.perf_counter()
+        if cli.main(["map", "--db", os.path.join(db_dir, "graph.npz"),
+                     "-fq1", fq, "-o", out, "--device", d]) != 0:
+            raise AssertionError(f"cli map --device {d} failed")
+        recs[d] = (out, time.perf_counter() - t0,
+                   [gam.encode_alignment(a) for a in gam.read_gam(out)])
+    if recs[str(dev)][2] != recs["cpu"][2] or \
+            len(recs["cpu"][2]) != KL_READS:
+        raise AssertionError("map --device cuda vs cpu: alignments differ")
+    dedup = os.path.join(out_dir, "dedup.gam")
+    if cli.main(["duprm", recs[str(dev)][0], dedup]) != 0:
+        raise AssertionError("cli duprm failed")
+    kept = len(gam.read_gam(dedup))
+    if not 0 < kept <= KL_READS:
+        raise AssertionError(f"duprm kept {kept}")
+    log(f"map: {KL_READS} alignments on the card ({recs[str(dev)][1]:.2f} s) "
+        f"equal to the CPU's ({recs['cpu'][1]:.2f} s); duprm kept {kept}")
+    timed = runs[1:]
+    e2e = [KL_READS / sum(r["stages_s"].values()) for r in timed]
+    log(f"keelime: keelime_e2e_reads_per_s "
+        f"{', '.join(f'{x:.1f}' for x in e2e)} on {smi}")
+    merge = overlap[1:] or overlap[:1]
+    return dict(launches=launches["overlap_best"],
+                sw_launches=launches["gather_score_hash"], runs=runs,
+                reads_per_s=e2e, cpu_run_s=cpu_s, cpu_stages_s=cpu_st,
+                overlap=overlap,
+                find_overlaps=overlap[0],
+                largest_merge=max(merge, key=lambda r: r["pairs"]),
+                map_card_s=recs[str(dev)][1], map_cpu_s=recs["cpu"][1],
+                duprm_kept=kept)
+
+
 # ----------------------------------------------------------------- main
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "vgan_tpu_torch")):
@@ -1386,6 +1746,8 @@ def main() -> int:
     # later launch of the process
     with tempfile.TemporaryDirectory(prefix="vgan_smoke_soibean_") as tmp:
         sb = phase_soibean(dev, tmp, clock)
+    with tempfile.TemporaryDirectory(prefix="vgan_smoke_keelime_") as tmp:
+        kl = phase_keelime(dev, tmp, clock)
     with tempfile.TemporaryDirectory(prefix="vgan_smoke_euka_") as tmp:
         eu = phase_euka(dev, tmp, clock)
     log(f"euka: euka_realdb_e2e_reads_per_s "
@@ -1408,13 +1770,22 @@ def main() -> int:
         soibean_mcmc_iters_per_s=sb["mcmc_iters_per_s"],
         soibean_sampler_iters_per_s=sb["sampler_iters_per_s"],
         soibean_runs=sb["runs"], soibean_tree_kernel=sb["kernel"],
-        soibean_sw_calls=sb["sw"])))
+        soibean_sw_calls=sb["sw"],
+        keelime_e2e_reads_per_s=kl["reads_per_s"], keelime_runs=kl["runs"],
+        keelime_cpu_run_s=kl["cpu_run_s"],
+        keelime_cpu_stages_s=kl["cpu_stages_s"],
+        keelime_overlap_calls=kl["overlap"],
+        keelime_map_card_s=kl["map_card_s"], keelime_map_cpu_s=kl["map_cpu_s"],
+        keelime_duprm_kept=kl["duprm_kept"])))
     # launches: sw_scores from the mapper's object path, gather_score_hash
-    # from the HaploCart, soibean and euka CLI runs, tree_mcmc_segment from
-    # the soibean CLI runs (each counted from 0 just before its runs);
-    # times and bounds at the timing shape, at the mapper's pool batch and
-    # over SB_TIMED_STEPS post-burn-in steps of the soibean k-sweep batch
+    # from the HaploCart, soibean, keelime and euka CLI runs,
+    # tree_mcmc_segment from the soibean CLI runs, overlap_best from the
+    # keelime CLI runs (each counted from 0 just before its runs); times and
+    # bounds at the timing shape, at the mapper's pool batch, over
+    # SB_TIMED_STEPS post-burn-in steps of the soibean k-sweep batch and at
+    # the find_overlaps batch of the keelime warm-up run
     t_sw, t_gsh, t_tree = k["sw"], k["gsh"]["pool"], sb["kernel"]["post"]
+    t_kl = kl["find_overlaps"]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "sw_scores_kernel",
@@ -1435,7 +1806,7 @@ def main() -> int:
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
         "launches": (e2e["launches"]["gather_score_hash"]
-                     + sb["sw_launches"]
+                     + sb["sw_launches"] + kl["sw_launches"]
                      + eu["launches"]["gather_score_hash"]),
         "max_abs_err": max(k["max_abs_err"]["gather_score_hash"],
                            e2e["sw"]["max_abs_err"],
@@ -1458,6 +1829,18 @@ def main() -> int:
         "bound_ms": t_tree["bound_ms"],
         "bound_by": t_tree["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "overlap_best_kernel",
+        "route": "cuda",
+        "source": KL_SOURCE,
+        "replaces": KL_REPLACES,
+        "launches": kl["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in kl["overlap"]),
+        "ms": t_kl["ms"],
+        "plain_ms": t_kl["plain_ms"],
+        "bound_ms": t_kl["bound_ms"],
+        "bound_by": t_kl["bound_by"],
+        "library_ms": t_kl["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

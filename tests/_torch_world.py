@@ -141,9 +141,15 @@ def write_euka_db(out_dir, graph, ranges, n_haps, dists, chunks,
         for t, row in enumerate(chunks):
             f.write(f"Taxon{t} " + " ".join(
                 f"{lo}.0 {hi}.0 {ent}" for lo, hi, ent in row) + "\n")
+    return (d,) + write_damage_profiles(d)
+
+
+def write_damage_profiles(out_dir):
+    """<out_dir>/deam5p.prof (C>T) and deam3p.prof (G>A) at DEAM_RATES;
+    returns their paths."""
     paths = []
     for name, col in (("deam5p.prof", 5), ("deam3p.prof", 6)):
-        path = os.path.join(d, name)
+        path = os.path.join(str(out_dir), name)
         with open(path, "w") as f:
             f.write(PROF_HEADER)
             for v in DEAM_RATES:
@@ -151,7 +157,7 @@ def write_euka_db(out_dir, graph, ranges, n_haps, dists, chunks,
                 row[col] = repr(v)
                 f.write("\t".join(row) + "\n")
         paths.append(path)
-    return d, paths[0], paths[1]
+    return paths[0], paths[1]
 
 
 def write_mixture_fastq(synth, graph, path, mix, n_haps, read_len=80,
@@ -314,3 +320,57 @@ def write_source_fastq(synth, graph, path, mix, read_len=64, seed=60):
             reads.append(r)
     write_fastq(path, reads)
     return reads
+
+
+# ----------------------------------------------------- keelime overlap pairs
+KEELIME_ALPHABET = "ACGTRYNS-acgtry"  # pipelines/keelime.py:_ALPHABET
+
+
+def _random_pairs(rng, alphabet, n, lo, hi):
+    alpha = np.array(list(alphabet))
+    return [("".join(rng.choice(alpha, int(rng.integers(lo, hi)))),
+             "".join(rng.choice(alpha, int(rng.integers(lo, hi)))))
+            for _ in range(n)]
+
+
+def overlap_adversarial_pairs():
+    """keelime overlap pairs: tests/test_keelime.py:441-465's sets,
+    widened to the full 15-character alphabet and to bytes outside it,
+    plus planted suffix/prefix overlaps."""
+    rng = np.random.default_rng(13)
+    full = KEELIME_ALPHABET
+    pairs = _random_pairs(rng, "ACGTRYN-", 60, 5, 50)
+    pairs += _random_pairs(rng, full, 80, 1, 60)
+    pairs += _random_pairs(rng, full + "xZ#*", 40, 1, 60)
+    for _ in range(40):
+        core = "".join(rng.choice(np.array(list(full)), 20))
+        pairs.append(("".join(rng.choice(np.array(list(full)), 10)) + core,
+                      core + "".join(rng.choice(np.array(list(full)), 10))))
+    return pairs
+
+
+# the full-length block's best start scores 21.0, and a's suffix equals
+# b's first 9 bases (27.0): at min_score 21.5 the scan falls through to the
+# tail, which wins with (9, 27.0)
+NEAR_MISS = ("GTGCGTGCAGTCACGTACGGT", "ACGTACGGTCATG")
+
+
+def overlap_trap_pairs():
+    """keelime overlap pairs at the scan's edge cases: case rules
+    (lowercase acgtry against uppercase), -/N/S, bytes outside the
+    alphabet (score 0), la < min_olen, lb > la (no full-length start),
+    lb == 0, la == 0, a full-length max just under min_score
+    (NEAR_MISS), and equal strings."""
+    core = "ACGTACGGTCAT"
+    return [
+        ("acgtry" * 4, "ACGTRY" * 4), ("ACGTRY" * 4, "acgtry" * 4),
+        ("gattaca" * 3, "GATTACA" * 3), ("ctga" * 6, "TCAG" * 6),
+        ("--NNSS" * 4, "-NS-NS" * 4), ("ACGT" * 6, "NNNN" * 6),
+        ("xyz!" * 8, "ACGT" * 8), ("ACGT" * 8, "qwer" * 8),
+        ("\x00\xff\x7f" * 6, "\x00\xff\x7f" * 6),
+        ("ACG", "ACGTACGT"), ("AC", "A"),
+        ("ACGTTGCA", "ACGTTGCAACGTTGCA"), ("ACGTACGT", "GTACGTACGTTT"),
+        ("ACGTACGT", ""), ("", "ACGT"), ("", ""),
+        NEAR_MISS, ("TT" + core, core), (core + core, core),
+        (core, core), ("GATTACA" * 5, "GATTACA" * 5),
+    ]

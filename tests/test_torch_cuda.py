@@ -1,7 +1,8 @@
-"""CUDA kernels of the port (csrc/sw.cu, csrc/tree_mcmc.cu) against their
-plain torch versions, and the device paths of the mapper, the euka
-scorer, the abundance MCMC and soibean's k-sweep against the same code
-on the CPU, on the card. Marked
+"""CUDA kernels of the port (csrc/sw.cu, csrc/tree_mcmc.cu,
+csrc/keelime.cu) against their plain torch versions (keelime's also
+against the native host scan), and the device paths of the mapper, the
+euka scorer, the abundance MCMC, soibean's k-sweep, keelime and `map`
+against the same code on the CPU, on the card. Marked
 `cuda`: they skip where torch.cuda.is_available() is false. This file imports neither jax nor
 vgan_tpu, so it also runs where jax is absent:
 
@@ -430,3 +431,131 @@ def test_tree_ksweep_on_card_equals_cpu(dev, monkeypatch):
         for f in ("pos", "theta", "loglike"):
             np.testing.assert_allclose(getattr(g, f), getattr(w, f),
                                        rtol=TREE_RTOL, atol=0)
+
+
+# ------------------------------------------------------------ keelime
+def _overlap_all_equal(dev, pairs, min_olen, min_score):
+    """overlap_best_kernel (one launch) against the plain version on the
+    card and the native scan on the CPU, exactly."""
+    from vgan_tpu_torch.pipelines import keelime_device as kd
+
+    kd.reset_launches()
+    got = kd.overlap_best_batch(pairs, min_olen, min_score, dev)
+    torch.cuda.synchronize()
+    assert kd.LAUNCHES["overlap_best"] == 1
+    assert got == kd.overlap_best_batch(pairs, min_olen, min_score, "cpu")
+    assert got == kd.overlap_scores_batch(pairs, min_olen, min_score,
+                                          device=dev)
+    return got
+
+
+@pytest.mark.parametrize("case,min_olen,min_score", [
+    ("traps", 3, 5.0), ("traps", 1, 33.0), ("traps", 8, 20.0),
+    ("traps", 3, 21.5), ("adversarial", 3, 5.0), ("random", 10, 10.0),
+    ("random", 1, 10.0),
+])
+def test_overlap_best_kernel_equals_plain_and_native(dev, case, min_olen,
+                                                     min_score):
+    """The edge cases of tests/_torch_world.py (case rules, -/N/S, bytes
+    outside the alphabet, la < min_olen, lb > la, lb == 0, the
+    full-length near miss) and 10^4 random pairs of the whole alphabet
+    with planted suffix/prefix overlaps."""
+    import _torch_world as world
+
+    if case == "traps":
+        pairs = world.overlap_trap_pairs()
+    elif case == "adversarial":
+        pairs = world.overlap_adversarial_pairs()
+    else:
+        rng = np.random.default_rng(21)
+        alpha = np.array(list(world.KEELIME_ALPHABET + "xZ"))
+        pairs = []
+        for i in range(10_000):
+            a = "".join(rng.choice(alpha, int(rng.integers(0, 130))))
+            b = "".join(rng.choice(alpha, int(rng.integers(0, 130))))
+            if i % 4 == 0:  # a planted overlap: a's suffix is b's prefix
+                k = int(rng.integers(0, len(a) + 1))
+                b = a[k:] + b
+            pairs.append((a, b))
+    got = _overlap_all_equal(dev, pairs, min_olen, min_score)
+    if case == "traps" and min_score == 21.5:
+        assert got[pairs.index(world.NEAR_MISS)] == (9, 27.0)
+
+
+def test_overlap_best_kernel_mitogenome_length(dev):
+    """Pairs of 16,569 bp: a full-length match, a suffix/prefix overlap
+    of 16,280 bp, a pair that scans the whole tail block, and one shorter
+    pair beside them."""
+    rng = np.random.default_rng(5)
+    seq = "".join(rng.choice(np.array(list("ACGT")), 16569))
+    pairs = [(seq, seq), (seq[:16400], seq[120:]), (seq, seq[::-1][:4000]),
+             ("ACGT" * 16, "GT" + "ACGT" * 10)]
+    got = _overlap_all_equal(dev, pairs, 40, 60.0)
+    assert got[0] == (16569, 3 * 16569.0) and got[1][0] == 16280
+
+
+def _keelime_world(tmp_path):
+    import _torch_world as world
+    from vgan_tpu_torch.graph import synth
+
+    graph, _ = synth.build_haplotype_graph(
+        world.backbone(3000, 3), n_haplotypes=4, n_variants=16, seed=3)
+    db = tmp_path / "db"
+    db.mkdir()
+    graph.save(str(db / "graph.npz"))
+    fq = str(tmp_path / "r.fq")
+    world.write_fastq(fq, synth.sample_reads(graph, 1, 600, read_len=64,
+                                             seed=0))
+    d5, d3 = world.write_damage_profiles(tmp_path)
+    return str(db), fq, d5, d3
+
+
+def test_keelime_cli_on_card_equals_cpu(dev, tmp_path):
+    """`keelime --device cuda` writes the four outputs of `--device cpu`
+    (the .gz files decompressed), both batched scans through the
+    kernel."""
+    import gzip
+
+    from vgan_tpu_torch import cli
+    from vgan_tpu_torch.mapper import sw
+    from vgan_tpu_torch.pipelines import keelime_device as kd
+
+    db, fq, d5, d3 = _keelime_world(tmp_path)
+    outs = {}
+    for name in ("cuda", "cpu"):
+        kd.reset_launches()
+        sw.reset_launches()
+        prefix = str(tmp_path / f"{name}_")
+        assert cli.main(["keelime", "--dbdir", db, "--dbprefix", "graph.npz",
+                         "-fq1", fq, "-o", prefix, "-p", "hap1", "--deam5p",
+                         d5, "--deam3p", d3, "--device",
+                         str(dev) if name == "cuda" else "cpu"]) == 0
+        if name == "cuda":
+            # find_overlaps and at least one merge pass
+            assert kd.LAUNCHES["overlap_best"] >= 2
+            assert sw.LAUNCHES["gather_score_hash"] >= 1
+        else:
+            assert kd.LAUNCHES["overlap_best"] == 0
+        outs[name] = {}
+        for f in ("Contig.fa.gz", "Consensus.fa.gz", "ProbabilityMatrix.tsv",
+                  "CountMatrix.tsv"):
+            with open(prefix + f, "rb") as fh:
+                data = fh.read()
+            outs[name][f] = gzip.decompress(data) if f.endswith(".gz") \
+                else data
+    assert outs["cuda"] == outs["cpu"]
+
+
+def test_map_cli_on_card_equals_cpu(dev, tmp_path):
+    from vgan_tpu_torch import cli
+    from vgan_tpu_torch.io import gam
+
+    db, fq, _d5, _d3 = _keelime_world(tmp_path)
+    recs = {}
+    for name in ("cuda", "cpu"):
+        out = str(tmp_path / f"{name}.gam")
+        assert cli.main(["map", "--db", os.path.join(db, "graph.npz"),
+                         "-fq1", fq, "-o", out, "--device",
+                         str(dev) if name == "cuda" else "cpu"]) == 0
+        recs[name] = [gam.encode_alignment(a) for a in gam.read_gam(out)]
+    assert len(recs["cuda"]) == 600 and recs["cuda"] == recs["cpu"]

@@ -1,6 +1,6 @@
 """The port's package rules: it runs where jax is absent, never imports
-jax or vgan_tpu, picks no device on its own and never writes into the
-JAX package's native directory."""
+jax or vgan_tpu, compiles only its own sources, picks no device on its
+own and never writes into the JAX package's native directory."""
 import os
 import re
 import subprocess
@@ -34,6 +34,21 @@ _g, db_dir, fq, _reads = world.build(synth, out, n_bp=1500, n_haps=8,
 tsv = os.path.join(out, "hc.tsv")
 assert cli.main(["haplocart", "--db", db_dir, "-fq1", fq, "-o", tsv,
                  "--device", "cpu"]) == 0
+d5, d3 = world.write_damage_profiles(out)
+assert cli.main(["keelime", "--dbdir", db_dir, "--dbprefix", "graph.npz",
+                 "-fq1", fq, "-o", os.path.join(out, "kl_"), "-p", "hap5",
+                 "--deam5p", d5, "--deam3p", d3, "--device", "cpu"]) == 0
+import gzip
+with gzip.open(os.path.join(out, "kl_Consensus.fa.gz"), "rt") as f:
+    cons = f.read().split("\n")[1]
+print("KEELIME", len(cons), len(cons) - cons.count("N"))
+gam = os.path.join(out, "r.gam")
+assert cli.main(["map", "--db", os.path.join(db_dir, "graph.npz"), "-fq1", fq,
+                 "-o", gam, "--device", "cpu"]) == 0
+assert cli.main(["duprm", gam, os.path.join(out, "dedup.gam")]) == 0
+from vgan_tpu_torch.io import gam as gamio
+print("DUPRM", len(gamio.read_gam(gam)),
+      len(gamio.read_gam(os.path.join(out, "dedup.gam"))))
 from vgan_tpu_torch.graph.packed import PackedGraph
 graph, ranges = world.build_euka_graph(synth, PackedGraph, n_bp=1500)
 edir, _d5, _d3 = world.write_euka_db(
@@ -84,6 +99,14 @@ def test_port_runs_without_jax(tmp_path):
     assert [d[0] for d in det] == ["Taxon0", "Taxon1"]
     assert all(d[1] == "yes" and len(d) == 8 for d in det)
     assert 0.5 < float(det[0][3]) < 0.85
+    # keelime's consensus over the 1,500-bp haplotype, and duprm on the
+    # port's own GAM of the same reads
+    kl = [l for l in r.stdout.splitlines() if l.startswith("KEELIME")][0]
+    n_cons, n_called = map(int, kl.split()[1:])
+    assert n_cons >= 0.9 * 1500 and n_called >= 0.5 * 1500, kl
+    dup = [l for l in r.stdout.splitlines() if l.startswith("DUPRM")][0]
+    n_in, n_kept = map(int, dup.split()[1:])
+    assert n_in == 120 and 0 < n_kept <= n_in, dup
     # soibean's five file kinds for k = 1 and 2
     sb = [l for l in r.stdout.splitlines() if l.startswith("SOIBEAN")][0]
     files = set(sb.split()[1:])
@@ -135,6 +158,30 @@ def test_import_changes_no_global_state():
                        env=dict(os.environ, PYTHONPATH=REPO),
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and "ok" in r.stdout, r.stderr
+
+
+def test_native_sources_lie_in_the_port(monkeypatch):
+    """Every source _native compiles (the host library's C++ and the
+    three CUDA files) lies under vgan_tpu_torch/, and the host library
+    is built from exactly the C++ list."""
+    from vgan_tpu_torch import _native
+
+    cuda = [_native.SW_SRC, _native.TREE_MCMC_SRC, _native.KEELIME_SRC]
+    host = [os.path.join(_native.CPP_DIR, s) for s in _native.HOST_SRCS]
+    for src in host + cuda:
+        assert os.path.isfile(src), src
+        assert os.path.commonpath([os.path.realpath(src), PKG]) == PKG, src
+    seen = []
+    build = _native._build
+
+    def recording(name, compiler, flags, srcs, libs):
+        seen.append(list(srcs))
+        return build(name, compiler, flags, srcs, libs)
+
+    monkeypatch.setattr(_native, "_build", recording)
+    monkeypatch.setattr(_native, "_loaded", {})
+    _native.host_lib()
+    assert seen == [host]
 
 
 def test_native_library_built_outside_jax_package():

@@ -1,18 +1,20 @@
 """Builds and loads the port's native libraries at first use.
 
-* The host library: g++ on the C++ sources of the JAX package
-  (`vgan_tpu/cpp/*.cpp`, read by path — they are not Python and import
-  nothing) with that directory's Makefile flags. It holds the seeding,
-  finalize, graph-alignment, reconstruction, FASTQ and GAM codecs.
-* The CUDA kernel libraries: nvcc on `csrc/sw.cu` (Smith-Waterman) and
-  on `csrc/tree_mcmc.cu` (soibean's tree MCMC), each for sm_90a, a plain
-  C interface loaded with ctypes.
+* The host library: g++ on the port's own copy of the JAX package's
+  C++ sources (`cpp/*.cpp` beside this file, each a copy of
+  `vgan_tpu/cpp/<name>.cpp`) with that directory's Makefile flags. It
+  holds the seeding, finalize, graph-alignment, reconstruction, FASTQ
+  and GAM codecs and keelime's overlap and window scans.
+* The CUDA kernel libraries: nvcc on `csrc/sw.cu` (Smith-Waterman), on
+  `csrc/tree_mcmc.cu` (soibean's tree MCMC) and on `csrc/keelime.cu`
+  (keelime's batched overlap scans), each for sm_90a, a plain C
+  interface loaded with ctypes.
 
 Both land in `_build/` beside this file (gitignored), named by a hash
 of their sources and flags, so an edited source rebuilds and a stale
 library is never loaded. A file lock serialises concurrent builders
 (parallel test workers); the library is written under a temporary name
-and renamed into place. Nothing is ever written into `vgan_tpu/cpp/`.
+and renamed into place. Every source compiled lies under this package.
 A failed build or load raises: no caller falls back to another path.
 """
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import Dict, List
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-CPP_DIR = os.path.join(os.path.dirname(_PKG_DIR), "vgan_tpu", "cpp")
+CPP_DIR = os.path.join(_PKG_DIR, "cpp")
 # the source list and flags of vgan_tpu/cpp/Makefile:2-9
 HOST_SRCS = [
     "gamcodec.cpp", "graphalign.cpp", "fastqreader.cpp", "mapfinalize.cpp",
@@ -38,6 +40,7 @@ HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-shared"]
 HOST_LIBS = ["-lz", "-lpthread"]
 SW_SRC = os.path.join(_PKG_DIR, "csrc", "sw.cu")
 TREE_MCMC_SRC = os.path.join(_PKG_DIR, "csrc", "tree_mcmc.cu")
+KEELIME_SRC = os.path.join(_PKG_DIR, "csrc", "keelime.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -89,8 +92,8 @@ def _build(name: str, compiler: str, flags: List[str], srcs: List[str],
 
 
 def host_lib() -> ctypes.CDLL:
-    """The native host library (seeding, finalize, codecs), built from
-    vgan_tpu/cpp/ on first use."""
+    """The native host library (seeding, finalize, codecs, keelime's
+    scans), built from cpp/ on first use."""
     lib = _loaded.get("host")
     if lib is None:
         gxx = _find_tool("g++", [])
@@ -101,15 +104,19 @@ def host_lib() -> ctypes.CDLL:
     return lib
 
 
+def _nvcc_lib(name: str, src: str) -> ctypes.CDLL:
+    """One CUDA source built with nvcc for sm_90a and loaded."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    nvcc = _find_tool("nvcc", [os.path.join(cuda_home, "bin", "nvcc")])
+    return ctypes.CDLL(_build(name, nvcc, NVCC_FLAGS, [src], []))
+
+
 def sw_lib() -> ctypes.CDLL:
     """The CUDA Smith-Waterman kernels (csrc/sw.cu), built with nvcc for
     sm_90a on first use, with their C entry points typed."""
     lib = _loaded.get("sw")
     if lib is None:
-        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        nvcc = _find_tool("nvcc", [os.path.join(cuda_home, "bin", "nvcc")])
-        path = _build("vgan_sw", nvcc, NVCC_FLAGS, [SW_SRC], [])
-        lib = ctypes.CDLL(path)
+        lib = _nvcc_lib("vgan_sw", SW_SRC)
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.sw_scores_launch.restype = i32
         lib.sw_scores_launch.argtypes = [
@@ -135,11 +142,7 @@ def tree_mcmc_lib() -> ctypes.CDLL:
     for sm_90a on first use, with its C entry point typed."""
     lib = _loaded.get("tree_mcmc")
     if lib is None:
-        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        nvcc = _find_tool("nvcc", [os.path.join(cuda_home, "bin", "nvcc")])
-        path = _build("vgan_tree_mcmc", nvcc, NVCC_FLAGS, [TREE_MCMC_SRC],
-                      [])
-        lib = ctypes.CDLL(path)
+        lib = _nvcc_lib("vgan_tree_mcmc", TREE_MCMC_SRC)
         vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.tree_mcmc_segment_launch.restype = i32
         lib.tree_mcmc_segment_launch.argtypes = (
@@ -154,4 +157,23 @@ def tree_mcmc_lib() -> ctypes.CDLL:
             + [vp]                     # stream
         )
         _loaded["tree_mcmc"] = lib
+    return lib
+
+
+def keelime_lib() -> ctypes.CDLL:
+    """The CUDA overlap-scan kernel (csrc/keelime.cu), built with nvcc
+    for sm_90a on first use, with its C entry point typed."""
+    lib = _loaded.get("keelime")
+    if lib is None:
+        lib = _nvcc_lib("vgan_keelime", KEELIME_SRC)
+        vp, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+        lib.overlap_best_launch.restype = ctypes.c_int
+        lib.overlap_best_launch.argtypes = [
+            vp, vp, vp, vp, i64,       # abuf, aoff, bbuf, boff, n
+            vp, vp,                    # lut [256] uint8, table2 [16, 16] int32
+            i64, f64,                  # min_olen, min_score
+            vp, vp,                    # out_len, out_score
+            vp,                        # stream
+        ]
+        _loaded["keelime"] = lib
     return lib

@@ -8,18 +8,30 @@
         -o out_prefix
     python -m vgan_tpu_torch.cli soibean --soibean_dir <dir> \\
         --dbprefix <taxon> -fq1 reads.fq -o out_prefix [--device cuda|cpu]
+    python -m vgan_tpu_torch.cli keelime --dbdir <dir> --dbprefix <graph> \\
+        -fq1 reads.fq [-fq2 mates.fq | -g in.gam] -o out_prefix \\
+        [-p <path>] [--deam5p p5 --deam3p p3] [-m normal|reckless|strict] \\
+        [--device cuda|cpu]
+    python -m vgan_tpu_torch.cli map --db <dir|prefix> -fq1 reads.fq \\
+        [-fq2 mates.fq] -o out.gam [--device cuda|cpu]
+    python -m vgan_tpu_torch.cli duprm sorted.gam [out.gam]
     python -m vgan_tpu_torch.cli build-db <in.gfa|.vg|.og|.gbz|.gg|.xg> <out_dir>
+    python -m vgan_tpu_torch.cli build-hc-db <ref.fa> <haps.fa> <out_dir> \\
+        [--phylo tree.tsv] [--node-len N]
     python -m vgan_tpu_torch.cli build-taxon-db <db_dir> <taxon> [out_dir]
+    python -m vgan_tpu_torch.cli vcf2fasta <vcf> <fasta> <chromosome>
     python -m vgan_tpu_torch.cli version
 
 The flags are vgan_tpu.cli's (the reference's manual single-dash style,
 `src/HaploCart.cpp:87-209`, `src/Euka.cpp:193-345`,
-`src/soibean.cpp:260-402`), without `--devices` and with `--device`:
-where the mapper's Smith-Waterman kernel, the likelihood scorers and the
-MCMC samplers (euka's abundance chain, soibean's tree chains) run. It
-defaults to `cuda`, and asking for CUDA where there is none raises;
-`--device cpu` runs the plain torch versions. `gam2prof`, `build-db` and
-`build-taxon-db` run on the host only.
+`src/soibean.cpp:260-402`, `src/assembly.cpp:3560-4456`), without
+`--devices` and with `--device`: where the mapper's Smith-Waterman kernel, the
+likelihood scorers, the MCMC samplers (euka's abundance chain, soibean's
+tree chains) and keelime's batched overlap scans run. It defaults to
+`cuda`, and asking for CUDA where there is none raises; `--device cpu`
+runs the plain torch versions (keelime's overlap scans: the native host
+scan). `duprm`, `gam2prof`, `build-db`, `build-hc-db`, `build-taxon-db`
+and `vcf2fasta` run on the host only.
 """
 from __future__ import annotations
 
@@ -79,8 +91,27 @@ def main(argv: List[str] | None = None) -> int:
         return cmd_build_db(rest)
     if cmd == "build-taxon-db":
         return cmd_build_taxon_db(rest)
+    if cmd == "keelime":
+        from .pipelines.keelime import main_keelime
+
+        return main_keelime(rest)
+    if cmd == "duprm":
+        return cmd_duprm(rest)
+    if cmd == "map":
+        return cmd_map(rest)
+    if cmd == "build-hc-db":
+        return cmd_build_hc_db(rest)
+    if cmd == "vcf2fasta":
+        from .db.vcf2fasta import add_variants_to_fasta
+
+        if len(rest) != 3:
+            print("Usage: vgan vcf2fasta [vcf_file] [fasta_file] "
+                  "[chromosome]")
+            return 1
+        return add_variants_to_fasta(rest[0], rest[1], rest[2])
     print(f"unknown subcommand {cmd} (the port runs haplocart, euka, "
-          "gam2prof, soibean, build-db and build-taxon-db)", file=sys.stderr)
+          "gam2prof, soibean, keelime, map, duprm, build-db, build-hc-db, "
+          "build-taxon-db and vcf2fasta)", file=sys.stderr)
     return 1
 
 
@@ -553,6 +584,79 @@ def cmd_soibean(args: List[str]) -> int:
     return 0
 
 
+def cmd_duprm(args: List[str]) -> int:
+    """`duprm sorted.gam [out.gam]` (`src/rmdup.cpp`). Host only."""
+    from .io import gam as gamio
+    from .pipelines.haplocart import remove_duplicates
+
+    if not args:
+        raise SystemExit("usage: vgan duprm sorted.gam [out.gam]")
+    alignments = gamio.read_gam(args[0])
+    kept = remove_duplicates(alignments)
+    outpath = args[1] if len(args) > 1 else "/dev/stdout"
+    gamio.write_gam(outpath, kept)
+    print(
+        f"removed {len(alignments) - len(kept)} duplicates, kept {len(kept)}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def cmd_map(args: List[str]) -> int:
+    """map --db <dir|prefix> -fq1 reads.fq [-fq2 mates.fq] -o out.gam
+    [-k K] [--minw W] [--device cuda|cpu]: the standalone
+    giraffe-equivalent mapper; its SW scoring runs on `--device`."""
+    from .io import fastx, gam as gamio
+    from .mapper.giraffe import BatchedMapper
+    from .utils.device import resolve_device
+
+    db = ""
+    fq1 = fq2 = ""
+    out = "/dev/stdout"
+    k, w = 20, 10
+    device = "cuda"
+    i = 0
+    while i < len(args):
+        a = args[i]
+        if a == "--db":
+            db = _take(args, i); i += 2
+        elif a == "-fq1":
+            fq1 = _take(args, i); i += 2
+        elif a == "-fq2":
+            fq2 = _take(args, i); i += 2
+        elif a == "-o":
+            out = _take(args, i); i += 2
+        elif a == "-k":
+            k = int(_take(args, i)); i += 2
+        elif a == "--minw":
+            w = int(_take(args, i)); i += 2
+        elif a == "--device":
+            device = _take(args, i); i += 2
+        else:
+            print(f"[map] ignoring unknown flag {a}", file=sys.stderr)
+            i += 1
+    dev = resolve_device(device)
+    graph = _load_graph(db)
+    mapper = BatchedMapper(graph, k=k, w=w, device=dev)
+    reads = fastx.read_fastq(fq1)
+    n_total = len(reads)
+    if fq2:
+        r2 = fastx.read_fastq(fq2)
+        n_total += len(r2)
+        if len(r2) == len(reads):
+            alignments = mapper.map_read_pairs(reads, r2)
+        else:
+            alignments = mapper.map_reads(reads + r2)
+            for a2 in alignments:
+                a2.read_paired = True
+    else:
+        alignments = mapper.map_reads(reads)
+    gamio.write_gam(out, alignments)
+    mapped = sum(1 for a2 in alignments if a2.identity != 0)
+    print(f"[map] mapped {mapped}/{n_total} reads -> {out}", file=sys.stderr)
+    return 0
+
+
 def cmd_build_db(args: List[str]) -> int:
     """build-db <in.gfa|in.vg|in.og|in.gbz|in.gg|in.xg> <out_dir>:
     compile a GFA, vg-protobuf, bdsg-ODGI, GBZ, .gg+.gbwt or sdsl .xg
@@ -568,6 +672,39 @@ def cmd_build_db(args: List[str]) -> int:
     g.save(os.path.join(out_dir, "graph.npz"))
     print(
         f"packed {g.n_nodes} nodes / {g.n_paths} paths -> {out_dir}/graph.npz",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def cmd_build_hc_db(args: List[str]) -> int:
+    """build-hc-db <ref.fa> <haplotypes.fa> <out_dir> [--phylo tree.tsv]
+    [--node-len N]: self-host a HaploCart-layout DB (graph.npz and the
+    reference-format sidecars) from vcf2fasta-style consensus FASTAs
+    (db/hc_build.py). Host only."""
+    from .db.hc_build import build_hc_db
+
+    pos = [a for a in args if not a.startswith("--")]
+    if len(pos) < 3:
+        raise SystemExit(
+            "usage: vgan build-hc-db ref.fa haps.fa out_dir"
+            " [--phylo tree.tsv] [--node-len N]"
+        )
+    phylo = None
+    node_len = 8
+    i = 0
+    while i < len(args):
+        if args[i] == "--phylo":
+            phylo = _take(args, i); i += 2
+        elif args[i] == "--node-len":
+            node_len = int(_take(args, i)); i += 2
+        else:
+            i += 1
+    g = build_hc_db(pos[0], pos[1], pos[2], phylo_tsv=phylo,
+                    node_len=node_len)
+    print(
+        f"built hcfiles-layout DB: {g.n_nodes} nodes / {g.n_paths} "
+        f"haplotype paths -> {pos[2]}",
         file=sys.stderr,
     )
     return 0

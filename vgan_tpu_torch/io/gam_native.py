@@ -1,6 +1,6 @@
 # Copied from vgan_tpu/io/gam_native.py; imports repointed to this package, native-library
 # fallback removed (the library comes from _native.host_lib, which raises).
-"""ctypes bindings for the native GAM codec (vgan_tpu/cpp/gamcodec.cpp).
+"""ctypes bindings for the native GAM codec (cpp/gamcodec.cpp).
 
 Decodes a whole GAM into columnar numpy arrays in C++ (BGZF inflate +
 protobuf walk), the native-runtime analogue of the reference's

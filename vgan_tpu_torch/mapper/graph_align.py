@@ -309,7 +309,7 @@ def align_to_window(q: np.ndarray, win: Window) -> Optional[GraphAlignment]:
 
 
 # ---------------------------------------------------------------------------
-# native fast path (vgan_tpu/cpp/graphalign.cpp)
+# native fast path (cpp/graphalign.cpp)
 # ---------------------------------------------------------------------------
 _native_lib = None
 
