@@ -83,8 +83,12 @@ and prints no result):
    and timed; then tree_mcmc_segment_kernel against its plain version
    on the card and on the CPU over 1,000 steps of the run's own k-sweep
    batch (200 burn-in steps, 800 after it; node ids exact, floats to
-   rtol 1e-10), and timed a step beside its bound, the plain version a
-   step on the card over 200 steps. Phase 6 runs before phase 5, whose
+   rtol 1e-10) at every cluster size the wrapper can choose for the
+   batch (1, 2, 4 and 8 CTAs a row for its 12 rows on an H100), the
+   plain versions run once; at each size timed a step post-burn-in and
+   in burn-in beside its bound and the serial floor (the same steps with
+   R cut to 32 reads a CTA); the plain version a step on the card over
+   200 steps. Phase 6 runs before phase 5, whose
    profiler pass slows every later launch of the process.
 7. keelime — a reference-free world at a mitogenome's scale: a seeded
    random 16,569-bp backbone with four haplotypes (40 variants, 8-bp
@@ -114,7 +118,8 @@ overlap_best_kernel's those of the keelime runs (each counted from 0
 just before its runs); ms, plain_ms and the bound are at the mapper's
 shape (sw_scores: B=32,768 full-length pairs; gather_score_hash: the
 pool batch), for the tree kernel over 200 post-burn-in steps of the
-soibean k-sweep batch (12 rows, Kmax 3, 4,000 reads, 255 paths), and
+soibean k-sweep batch (12 rows, Kmax 3, 4,000 reads, 255 paths) at the
+cluster size the wrapper chooses, and
 for overlap_best_kernel at the find_overlaps batch of the keelime
 warm-up run, with the library's grouped conv1d as library_ms.
 Every timing line names the card and its power limit. The
@@ -1184,10 +1189,16 @@ def check_tree_kernel(dev, call, smi):
     """The kernel against its plain version on the card and on the CPU,
     over SB_CHECK_BURN + SB_CHECK_POST steps of the run's own k-sweep
     batch (`call`: the arguments of run_tree_mcmc_ksweep in the CLI run),
-    noise drawn once; node ids exact, positions, proportions and
-    log-likelihoods to rtol 1e-10. Then timed: the kernel a step over
-    SB_TIMED_STEPS and over a runner's segment, the plain version a step
-    on the card over SB_TIMED_STEPS, beside the bound."""
+    noise drawn once, at every cluster size the wrapper can choose for
+    the batch (tm.card_cluster_sizes), the plain versions run once; node
+    ids exact, positions, proportions and log-likelihoods to rtol 1e-10.
+    Then timed at each size: the kernel a step over SB_TIMED_STEPS
+    post-burn-in and burn-in steps, and the serial floor (the same steps
+    with R cut to 32 reads a CTA); at the chosen size also over a
+    runner's segment, and the plain version a step on the card over
+    SB_TIMED_STEPS, beside the bound."""
+    import functools
+
     import numpy as np
     import torch
 
@@ -1199,6 +1210,9 @@ def check_tree_kernel(dev, call, smi):
         args[3], kw["init_logls"], kw["seeds_per_k"], dev)
     B, K = srcs.shape
     P, R = data.path_map_t.shape
+    N, Cc = data.tree.children.shape
+    sizes = tm.card_cluster_sizes(dev, B, K, N, Cc, data.counts25_t.dtype)
+    chosen = sizes[0]
     sd_all = tm.sd_schedule(SB_ITER, SB_BURNIN, kw["num_paths"])
     burn_hops = tm.burn_walk_hops(kw["num_paths"])
     post0 = SB_BURNIN + 1
@@ -1208,9 +1222,10 @@ def check_tree_kernel(dev, call, smi):
                           data.counts25_t.permute(1, 0, 2).cpu().numpy(),
                           dict(zip(tm.FREQ_KEYS, data.freq.tolist())),
                           data.con, "cpu")
-    runs = {"kernel": (tm.run_segment, data),
-            "plain": (tm.run_segment_plain, data),
-            "cpu": (tm.run_segment, cpu_data)}
+    runs = {f"kernel G={G}": (functools.partial(tm.run_segment, cluster=G),
+                              data) for G in sizes}
+    runs.update({"plain": (tm.run_segment_plain, data),
+                 "cpu": (tm.run_segment, cpu_data)})
     start = (torch.as_tensor(srcs), torch.full((B, K), 0.5,
                                                 dtype=torch.float64),
              theta0.cpu(), torch.as_tensor(ll0))
@@ -1234,60 +1249,78 @@ def check_tree_kernel(dev, call, smi):
                 torch.cuda.synchronize()
             secs[name] += time.perf_counter() - t0
             recs[name].append([x.cpu() for x in rec])
-    max_err = 0.0
-    for other in ("plain", "cpu"):
-        for a, b in zip(recs["kernel"], recs[other]):
-            if not torch.equal(a[0], b[0]):
-                raise AssertionError(f"tree kernel vs {other}: node ids "
-                                     "differ")
-            for x, y in zip(a[1:], b[1:]):
-                bad = (x - y).abs() > 1e-10 * y.abs()
-                if bool(bad.any()):
-                    raise AssertionError(
-                        f"tree kernel vs {other}: {int(bad.sum())} values "
-                        "past rtol 1e-10")
-                max_err = max(max_err, float((x - y).abs().max()))
-    ll_rec = torch.cat([r[3] for r in recs["kernel"]], dim=1).numpy()
+    max_err = {}
+    for G in sizes:
+        name = f"kernel G={G}"
+        max_err[G] = 0.0
+        for other in ("plain", "cpu"):
+            for a, b in zip(recs[name], recs[other]):
+                if not torch.equal(a[0], b[0]):
+                    raise AssertionError(f"tree {name} vs {other}: node ids "
+                                         "differ")
+                for x, y in zip(a[1:], b[1:]):
+                    bad = (x - y).abs() > 1e-10 * y.abs()
+                    if bool(bad.any()):
+                        raise AssertionError(
+                            f"tree {name} vs {other}: {int(bad.sum())} "
+                            "values past rtol 1e-10")
+                    max_err[G] = max(max_err[G], float((x - y).abs().max()))
+    ll_rec = torch.cat([r[3] for r in recs[f"kernel G={chosen}"]],
+                       dim=1).numpy()
     acc = float((np.diff(ll_rec, axis=1) != 0).mean())
     steps = SB_CHECK_BURN + SB_CHECK_POST
     log(f"tree kernel vs plain on the card and on the CPU: {steps} steps of "
         f"the k-sweep batch (B={B}, Kmax={K}, R={R}, P={P}, {burn_hops} then "
-        f"{tm.POST_BURN_HOPS} hops): ids equal, max abs err {max_err:.3g}; "
-        f"acceptance {acc:.3f}; seconds kernel {secs['kernel']:.3f}, plain "
-        f"on the card {secs['plain']:.1f}, plain on the CPU "
-        f"{secs['cpu']:.1f}")
+        f"{tm.POST_BURN_HOPS} hops) at clusters of {sizes} CTAs a row "
+        f"(chosen {chosen}): ids equal, max abs err "
+        + json.dumps({str(G): e for G, e in max_err.items()})
+        + f"; acceptance {acc:.3f}; seconds "
+        + json.dumps({n: round(t, 3) for n, t in secs.items()}))
 
-    # timing: the post-burn-in walk from the checked carry
+    # timing: the post-burn-in walk from the checked carry, then burn-in
     cb = dict(P=P, size=data.counts25_t.element_size())
-    out = {}
+    c0 = carry[f"kernel G={chosen}"]
+    out = {"sizes": sizes, "chosen": chosen, "by_size": {}}
     for label, i0, n, hops in (("post", post0, SB_TIMED_STEPS,
                                 tm.POST_BURN_HOPS),
                                ("burn", 0, SB_TIMED_STEPS, burn_hops)):
         noise = tm.draw_noise(seeds, i0, i0 + n, K, hops, dev)
         seg = (mask_t.to(dev), torch.arange(i0, i0 + n, device=dev),
-               torch.from_numpy(sd_all[i0:i0 + n]).to(dev), noise,
-               data.path_map_t, data.counts25_t, data.tree, data.con,
-               data.freq)
-        c0 = carry["kernel"]
-        ms = cuda_ms(lambda: tm.run_segment(*(x.clone() for x in c0), *seg),
-                     reps=5)
+               torch.from_numpy(sd_all[i0:i0 + n]).to(dev), noise)
         bms, by, stream_ms = tree_bound_ms(mask, n, R, cb, hops)
-        out[label] = dict(ms=ms, steps=n, hops=hops, bound_ms=bms,
-                          bound_by=by, streamed_ms_a_step=stream_ms)
+        for G in sizes:
+            rf = G * 32  # the serial floor: 32 reads a CTA
+            ms = cuda_ms(lambda: tm.run_segment(
+                *(x.clone() for x in c0), *seg, data.path_map_t,
+                data.counts25_t, data.tree, data.con, data.freq,
+                cluster=G), reps=5)
+            pm_f = data.path_map_t[:, :rf].contiguous()
+            c25_f = data.counts25_t[:, :rf].contiguous()
+            floor_ms = cuda_ms(lambda: tm.run_segment(
+                *(x.clone() for x in c0), *seg, pm_f, c25_f, data.tree,
+                data.con, data.freq, cluster=G), reps=5)
+            out["by_size"].setdefault(str(G), {})[label] = dict(
+                us_a_step=1e3 * ms / n, floor_us_a_step=1e3 * floor_ms / n)
+            log(f"tree kernel, {'post-burn-in' if label == 'post' else 'burn-in'}"
+                f" walk ({hops} hops), clusters of {G}: {ms:.3f} ms for {n} "
+                f"steps = {1e3 * ms / n:.2f} us a step "
+                f"({100 * bms / ms:.2f} % of the {bms:.4f} ms bound, {by}); "
+                f"serial floor (R = {rf}) {1e3 * floor_ms / n:.2f} us a step; "
+                f"on {smi}")
+            if G == chosen:
+                out[label] = dict(ms=ms, steps=n, hops=hops, bound_ms=bms,
+                                  bound_by=by, floor_ms=floor_ms,
+                                  streamed_ms_a_step=stream_ms)
         if label == "post":
+            full = seg + (data.path_map_t, data.counts25_t, data.tree,
+                          data.con, data.freq)
             out[label]["plain_ms"] = cuda_ms(
-                lambda: tm.run_segment_plain(*(x.clone() for x in c0), *seg),
+                lambda: tm.run_segment_plain(*(x.clone() for x in c0), *full),
                 reps=1, warmup=0)
-        log(f"tree kernel, {'post-burn-in' if label == 'post' else 'burn-in'}"
-            f" walk ({hops} hops): "
-            f"{ms:.3f} ms for {n} steps = {1e3 * ms / n:.2f} us a step; "
-            f"bound {bms:.4f} ms ({by}; {100 * bms / ms:.2f} %), "
-            f"{stream_ms * 1e3:.3f} us a step if every slice streamed "
-            f"from HBM"
-            + (f"; plain on the card {out[label]['plain_ms'] / n:.2f} ms a "
-               f"step" if "plain_ms" in out[label] else "")
-            + f"; on {smi}")
-    # one segment as the runner cuts the post-burn-in walk
+            log(f"tree plain version on the card: "
+                f"{out[label]['plain_ms'] / n:.2f} ms a step; {stream_ms * 1e3:.3f} "
+                f"us a step if every slice streamed from HBM; on {smi}")
+    # one segment as the runner cuts the post-burn-in walk, at its choice
     S_run = tm.segment_plan(SB_ITER + 1, SB_BURNIN, kw["num_paths"], B,
                             K)[-2]
     n = S_run[1] - S_run[0]
@@ -1295,13 +1328,14 @@ def check_tree_kernel(dev, call, smi):
     seg = (mask_t.to(dev), torch.arange(S_run[0], S_run[1], device=dev),
            torch.from_numpy(sd_all[S_run[0]:S_run[1]]).to(dev), noise,
            data.path_map_t, data.counts25_t, data.tree, data.con, data.freq)
-    c0 = carry["kernel"]
     out["segment"] = dict(steps=n, ms=cuda_ms(
         lambda: tm.run_segment(*(x.clone() for x in c0), *seg), reps=2))
-    log(f"tree kernel, one runner segment of {n} steps: "
-        f"{out['segment']['ms']:.2f} ms on {smi}")
-    return dict(max_abs_err=max_err, acceptance=acc, check_s=secs,
-                B=B, K=K, R=R, P=P, **out)
+    log(f"tree kernel, one runner segment of {n} steps (clusters of "
+        f"{chosen}): {out['segment']['ms']:.2f} ms = "
+        f"{1e3 * out['segment']['ms'] / n:.2f} us a step on {smi}")
+    return dict(max_abs_err=max(max_err.values()), max_abs_err_by_size={
+        str(G): e for G, e in max_err.items()}, acceptance=acc,
+        check_s=secs, B=B, K=K, R=R, P=P, **out)
 
 
 def phase_soibean(dev, out_dir, clock):
@@ -1786,6 +1820,7 @@ def main() -> int:
     # the find_overlaps batch of the keelime warm-up run
     t_sw, t_gsh, t_tree = k["sw"], k["gsh"]["pool"], sb["kernel"]["post"]
     t_kl = kl["find_overlaps"]
+    log(f"smoke total {time.perf_counter() - START:.0f} s on {smi}")
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "sw_scores_kernel",

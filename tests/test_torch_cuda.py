@@ -365,6 +365,15 @@ def test_tree_mcmc_kernel_large_tree(dev):
     """A complete binary tree of 4,096 leaves (8,191 nodes, the root 0,
     node i's children 2i + 1 and 2i + 2): the tree tables exceed the
     kernel's shared-memory share and are read from device memory."""
+    _large_tree_case(dev, None)
+
+
+def test_tree_mcmc_kernel_large_tree_cluster8(dev):
+    """The same tree with clusters of 8 CTAs a row (5 reads a CTA)."""
+    _large_tree_case(dev, 8)
+
+
+def _large_tree_case(dev, cluster):
     from vgan_tpu_torch.infer import tree_mcmc as tm
     from vgan_tpu_torch.utils.newick import Tree
 
@@ -392,10 +401,147 @@ def test_tree_mcmc_kernel_large_tree(dev):
     args = (torch.ones((B, K), dtype=torch.bool, device=dev),
             torch.arange(S, device=dev), sd, noise, data.path_map_t,
             data.counts25_t, data.tree, data.con, data.freq)
-    got = tm.run_segment(*(x.clone() for x in carry), *args)
+    got = tm.run_segment(*(x.clone() for x in carry), *args,
+                         cluster=cluster)
     want = tm.run_segment_plain(*carry, *args)
     torch.cuda.synchronize()
     _assert_segments_equal(got, want)
+
+
+def _tree_rows(tree, B, K, seed=1):
+    """B rows of k = 1..K sources (row b has b % K + 1) padded to K:
+    mask, starting nodes and proportions as numpy."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((B, K), bool)
+    for b in range(B):
+        mask[b, : b % K + 1] = True
+    nodes = np.where(mask, rng.integers(0, tree.n_nodes, size=(B, K)), 0)
+    theta = np.where(mask, rng.random((B, K)) + 0.1, 0.0)
+    theta /= theta.sum(1, keepdims=True)
+    return mask, nodes.astype(np.int32), theta
+
+
+# 30 burn-in steps of 20 hops (iteration 0 included), then 50 of 8
+TREE_PLAN = ((0, 30, 20), (30, 80, 8))
+
+
+def _tree_kernel_vs_plain(dev, tree, data, B, K, cluster, plan=TREE_PLAN):
+    """The kernel (`cluster` CTAs a row; None: the wrapper's choice) and
+    the plain version on the card over the segments of `plan` [(i0, i1,
+    hops)], each from its own carry, with one noise draw; each segment's
+    outputs held equal. Returns the kernel's outputs of every segment."""
+    from vgan_tpu_torch.infer import tree_mcmc as tm
+
+    mask, nodes, theta = _tree_rows(tree, B, K)
+    sd = torch.from_numpy(tm.sd_schedule(plan[-1][1] - 1, plan[0][1],
+                                         tree.n_nodes)).to(dev)
+    start = (torch.from_numpy(nodes).to(dev),
+             torch.full((B, K), 0.5, dtype=torch.float64, device=dev),
+             torch.from_numpy(theta).to(dev),
+             torch.full((B,), -2000.0, dtype=torch.float64, device=dev))
+    carry = {"kernel": start, "plain": tuple(x.clone() for x in start)}
+    mask_t = torch.from_numpy(mask).to(dev)
+    got = []
+    for i0, i1, hops in plan:
+        noise = tm.draw_noise(list(range(B)), i0, i1, K, hops, "cpu")
+        args = (mask_t, torch.arange(i0, i1, device=dev), sd[i0:i1],
+                tm.Noise(*(x.to(dev) for x in noise)), data.path_map_t,
+                data.counts25_t, data.tree, data.con, data.freq)
+        out = {"kernel": tm.run_segment(*carry["kernel"], *args,
+                                        cluster=cluster),
+               "plain": tm.run_segment_plain(*carry["plain"], *args)}
+        torch.cuda.synchronize()
+        _assert_segments_equal(out["kernel"], out["plain"])
+        carry = {n: o[0] for n, o in out.items()}
+        got.append(out["kernel"])
+    return got
+
+
+TREE_COUNTS = {"uint8": (1, torch.uint8), "int16": (100, torch.int16),
+               "f64": (0.5, torch.float64)}
+
+
+# every cluster size the kernel takes, each count type; R = 700 and
+# 1,500 split unevenly over the CTAs of a row
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("counts,R", [("uint8", 700), ("int16", 1500),
+                                      ("f64", 700)])
+def test_tree_mcmc_kernel_cluster_equals_plain(dev, G, counts, R):
+    """k = 1..3 rows (B = 6) at a forced cluster size against the plain
+    version: node ids exact, floats to TREE_RTOL."""
+    from vgan_tpu_torch.infer import tree_mcmc as tm
+    from vgan_tpu_torch.utils.newick import parse_newick
+
+    scale, dtype = TREE_COUNTS[counts]
+    tree = parse_newick(TREE_NEWICK)
+    data = tm.prepare(tree, *_tree_inputs(tree, R, scale), TREE_FREQS, 0.05,
+                      dev)
+    assert data.counts25_t.dtype == dtype
+    tm.reset_launches()
+    _tree_kernel_vs_plain(dev, tree, data, 6, 3, G)
+    assert tm.LAUNCHES["tree_mcmc_segment"] == len(TREE_PLAN)
+
+
+# fewer reads than CTAs (some own none), and a count that no size divides
+@pytest.mark.parametrize("G,R", [(8, 5), (16, 5), (16, 12), (4, 37),
+                                 (8, 37), (16, 37)])
+def test_tree_mcmc_kernel_few_reads(dev, G, R):
+    from vgan_tpu_torch.infer import tree_mcmc as tm
+    from vgan_tpu_torch.utils.newick import parse_newick
+
+    tree = parse_newick(TREE_NEWICK)
+    data = tm.prepare(tree, *_tree_inputs(tree, R, 1), TREE_FREQS, 0.05,
+                      dev)
+    _tree_kernel_vs_plain(dev, tree, data, 6, 3, G)
+
+
+def test_tree_mcmc_kernel_cluster_choice(dev):
+    """The wrapper's own choice: one row (the checkpointed runner's batch)
+    gets the largest cluster that fits, 16 CTAs on an H100; 40 rows a
+    small one, all resident on distinct SMs; both equal the plain
+    version."""
+    from vgan_tpu_torch.infer import tree_mcmc as tm
+    from vgan_tpu_torch.utils.newick import parse_newick
+
+    tree = parse_newick(TREE_NEWICK)
+    data = tm.prepare(tree, *_tree_inputs(tree, 700, 1), TREE_FREQS, 0.05,
+                      dev)
+    N, Cc = data.tree.children.shape
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    one = tm.card_cluster_size(dev, 1, 3, N, Cc, torch.uint8)
+    many = tm.card_cluster_size(dev, 40, 3, N, Cc, torch.uint8)
+    if "H100" in torch.cuda.get_device_name(dev):
+        assert one == 16
+        assert many == 2
+    assert many <= 4 and 40 * many <= n_sm
+    for B in (1, 40):
+        _tree_kernel_vs_plain(dev, tree, data, B, 3, None)
+
+
+def test_tree_mcmc_kernel_deterministic(dev):
+    """Two launches on the same inputs at G = 8 are bit-equal."""
+    from vgan_tpu_torch.infer import tree_mcmc as tm
+    from vgan_tpu_torch.utils.newick import parse_newick
+
+    tree = parse_newick(TREE_NEWICK)
+    data = tm.prepare(tree, *_tree_inputs(tree, 1500, 1), TREE_FREQS, 0.05,
+                      dev)
+    B, K, S = 12, 3, 200
+    mask, nodes, theta = _tree_rows(tree, B, K)
+    noise = tm.draw_noise(list(range(B)), 0, S, K, 20, dev)
+    args = (torch.from_numpy(mask).to(dev), torch.arange(S, device=dev),
+            torch.from_numpy(tm.sd_schedule(S, 100, tree.n_nodes)[:S]).to(
+                dev), noise, data.path_map_t, data.counts25_t, data.tree,
+            data.con, data.freq)
+    start = (torch.from_numpy(nodes).to(dev),
+             torch.full((B, K), 0.5, dtype=torch.float64, device=dev),
+             torch.from_numpy(theta).to(dev),
+             torch.full((B,), -2000.0, dtype=torch.float64, device=dev))
+    a = tm.run_segment(*(x.clone() for x in start), *args, cluster=8)
+    b = tm.run_segment(*(x.clone() for x in start), *args, cluster=8)
+    torch.cuda.synchronize()
+    for x, y in zip(a[0] + a[1], b[0] + b[1]):
+        assert torch.equal(x, y)
 
 
 def test_tree_ksweep_on_card_equals_cpu(dev, monkeypatch):

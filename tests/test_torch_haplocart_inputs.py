@@ -110,3 +110,45 @@ def test_safari_table_equal_to_jax(hc):
         port_fastx.read_fastq(hc["fq"])[:200], chunk=128)
     assert (got.identity != 0).mean() > 0.9
     assert_tables_equal(got, want)
+
+
+def test_haplocart_gfa_db_byte_equal(hc, single_device_mesh, tmp_path):
+    """A DB directory holding graph.gfa and no graph.npz: both packages
+    read the GFA, and `haplocart --device cpu` writes JAX's TSV byte for
+    byte."""
+    db = tmp_path / "gfa_db"
+    db.mkdir()
+    world.write_gfa(hc["graph"], str(db / "graph.gfa"))
+    args = ["haplocart", "--db", str(db), "-fq1", hc["fq"]]
+    jtsv, ptsv = str(tmp_path / "jax.tsv"), str(tmp_path / "port.tsv")
+    assert jax_cli.main(args + ["-o", jtsv]) == 0
+    assert port_cli.main(args + ["-o", ptsv, "--device", "cpu"]) == 0
+    with open(jtsv, "rb") as f:
+        want = f.read()
+    with open(ptsv, "rb") as f:
+        got = f.read()
+    assert got == want
+    assert f"\thap{world.HAP}\t".encode() in got
+
+
+def test_load_db_routes_gbz(hc, tmp_path, monkeypatch):
+    """A DB directory holding only graph.giraffe.gbz (the reference's
+    hcfiles layout) goes through io.gbz.load_packed_graph; one holding
+    nothing raises JAX's error."""
+    from vgan_tpu_torch.io import gbz
+    from vgan_tpu_torch.pipelines import haplocart_runner as runner
+
+    graph = PortGraph.load(os.path.join(hc["db"], "graph.npz"))
+    seen = []
+    monkeypatch.setattr(gbz, "load_packed_graph",
+                        lambda p: seen.append(p) or graph)
+    db = tmp_path / "gbz_db"
+    db.mkdir()
+    (db / "graph.giraffe.gbz").write_bytes(b"")
+    loaded = runner.load_db(str(db), torch.device("cpu"))
+    assert seen == [str(db / "graph.giraffe.gbz")]
+    assert loaded.graph is graph
+    assert loaded.path_names == list(graph.path_names)
+    with pytest.raises(FileNotFoundError,
+                       match="no graph.npz/graph.gfa/.gbz in"):
+        runner.load_db(str(tmp_path), torch.device("cpu"))

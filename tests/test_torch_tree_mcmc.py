@@ -352,3 +352,39 @@ def test_counts_dtype_and_layout():
     assert data.path_map_t.shape == (tree.n_nodes, 30)
     np.testing.assert_array_equal(data.counts25_t.numpy(),
                                   counts25.transpose(1, 0, 2))
+
+
+# clusters of G CTAs an H100 SXM (132 SMs, seven or eight GPCs) holds at
+# once, and a smaller card's
+H100_RESIDENT = {16: 7, 8: 16, 4: 33, 2: 66, 1: 132}
+SMALL_RESIDENT = {16: 0, 8: 2, 4: 5, 2: 10, 1: 20}
+
+
+@pytest.mark.parametrize("B,n_sm,resident,want", [
+    (1, 132, H100_RESIDENT, 16), (4, 132, H100_RESIDENT, 16),
+    (12, 132, H100_RESIDENT, 8), (40, 132, H100_RESIDENT, 2),
+    (132, 132, H100_RESIDENT, 1), (200, 132, H100_RESIDENT, 1),
+    (1, 20, SMALL_RESIDENT, 8), (4, 20, SMALL_RESIDENT, 4),
+    (12, 20, SMALL_RESIDENT, 1), (40, 20, SMALL_RESIDENT, 1),
+])
+def test_cluster_size(B, n_sm, resident, want):
+    """The largest of 16, 8, 4, 2, 1 CTAs a row whose B clusters are all
+    resident at once on distinct SMs (the card's residency query
+    injected); never more clusters than the card holds."""
+    asked = []
+
+    def query(G):
+        asked.append(G)
+        return resident[G]
+
+    got = tm.cluster_size(B, n_sm, query)
+    assert got == want
+    fits = tm.cluster_sizes(B, n_sm, resident.__getitem__)
+    assert fits[0] == got and fits[-1] == 1
+    assert fits == sorted(fits, reverse=True)
+    assert got in tm.CLUSTER_SIZES
+    if got > 1:
+        assert B * got <= n_sm and resident[got] >= B
+    larger = [G for G in tm.CLUSTER_SIZES if G > got]
+    assert all(B * G > n_sm or resident[G] < B for G in larger)
+    assert 1 not in asked  # plain blocks need no query

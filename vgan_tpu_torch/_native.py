@@ -139,7 +139,8 @@ def sw_lib() -> ctypes.CDLL:
 
 def tree_mcmc_lib() -> ctypes.CDLL:
     """The CUDA tree-MCMC kernel (csrc/tree_mcmc.cu), built with nvcc
-    for sm_90a on first use, with its C entry point typed."""
+    for sm_90a on first use, with its C entry points typed (the launch
+    and the residency query of its thread-block clusters)."""
     lib = _loaded.get("tree_mcmc")
     if lib is None:
         lib = _nvcc_lib("vgan_tree_mcmc", TREE_MCMC_SRC)
@@ -154,8 +155,14 @@ def tree_mcmc_lib() -> ctypes.CDLL:
             + [f64]                    # con
             + [vp] * 4                 # the four trace arrays
             + [i32] * 8                # B, S, K, hops, R, P, N, Cc
+            + [i32]                    # cluster: CTAs a row
             + [vp]                     # stream
         )
+        lib.tree_mcmc_max_active_clusters.restype = i32
+        lib.tree_mcmc_max_active_clusters.argtypes = [
+            i32, i32, i32, i32, i32,   # cluster, K, N, Cc, count dtype
+            ctypes.POINTER(i32),       # out: clusters resident at once
+        ]
         _loaded["tree_mcmc"] = lib
     return lib
 

@@ -24,8 +24,9 @@ the JAX package's sampler (vgan_tpu/infer/tree_mcmc.py):
   iterations > burn.
 
 Where it runs. `run_segment` runs S steps of B rows. For CUDA tensors it
-launches `tree_mcmc_segment_kernel` (csrc/tree_mcmc.cu: one thread block
-a row, the whole serial chain inside the kernel) or raises; for CPU
+launches `tree_mcmc_segment_kernel` (csrc/tree_mcmc.cu: one thread-block
+cluster of G CTAs a row, each CTA a share of the reads, the whole serial
+chain inside the kernel; G from `cluster_size`) or raises; for CPU
 tensors it runs `run_segment_plain`, the straightforward translation (a
 Python loop over steps and hops, vectorised over rows and sources), which
 the tests hold against the JAX package. Each kernel launch adds one to
@@ -54,8 +55,9 @@ when it fits.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -425,18 +427,75 @@ def run_segment_plain(nodes, pos, theta, ll, mask, iters, sd, noise: Noise,
 
 
 _COUNT_CODES = {torch.uint8: 0, torch.int16: 1, F64: 2}
+CLUSTER_SIZES = (16, 8, 4, 2, 1)  # CTAs a row, largest first
+
+
+def cluster_sizes(B: int, n_sm: int,
+                  resident: Callable[[int], int]) -> List[int]:
+    """The sizes in CLUSTER_SIZES (largest first) at which B clusters
+    all run at once, one CTA an SM (B * G <= n_sm) and no more than
+    `resident(G)` clusters, the card's cudaOccupancyMaxActiveClusters
+    (injected, so that this runs without a card); always ending with 1,
+    at which rows are plain blocks that may queue."""
+    return [G for G in CLUSTER_SIZES
+            if G == 1 or (B * G <= n_sm and resident(G) >= B)]
+
+
+def cluster_size(B: int, n_sm: int, resident: Callable[[int], int]) -> int:
+    """CTAs a chain row: the largest of `cluster_sizes`."""
+    return cluster_sizes(B, n_sm, resident)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(index: int, G: int, K: int, N: int, Cc: int,
+              count_code: int) -> int:
+    """Clusters of G CTAs of the kernel that card `index` holds at once."""
+    from .._native import tree_mcmc_lib
+
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = tree_mcmc_lib().tree_mcmc_max_active_clusters(
+            G, K, N, Cc, count_code, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"tree_mcmc: residency query for clusters of "
+                           f"{G} failed: CUDA error {rc}")
+    return out.value
+
+
+def card_cluster_sizes(dev: torch.device, B: int, K: int, N: int, Cc: int,
+                       counts_dtype: torch.dtype) -> List[int]:
+    """cluster_sizes for B rows of the kernel on card `dev`."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    n_sm = torch.cuda.get_device_properties(index).multi_processor_count
+    code = _COUNT_CODES[counts_dtype]
+    return cluster_sizes(B, n_sm,
+                         lambda G: _resident(index, G, K, N, Cc, code))
+
+
+def card_cluster_size(dev: torch.device, B: int, K: int, N: int, Cc: int,
+                      counts_dtype: torch.dtype) -> int:
+    """cluster_size for B rows of the kernel on card `dev`."""
+    return card_cluster_sizes(dev, B, K, N, Cc, counts_dtype)[0]
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it whose data starts on a 16-byte boundary (the
+    kernel reads the walk's uniforms and the counts as wide words)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def run_segment(nodes, pos, theta, ll, mask, iters, sd, noise: Noise,
-                path_map_t, counts25_t, tree: TreeTensors, con, freq):
+                path_map_t, counts25_t, tree: TreeTensors, con, freq,
+                cluster: Optional[int] = None):
     """S Metropolis-Hastings steps of B chain rows (see
     run_segment_plain for the shapes). CPU tensors run the plain
     version. CUDA tensors launch tree_mcmc_segment_kernel
-    (csrc/tree_mcmc.cu) once, which updates the carry tensors in place
+    (csrc/tree_mcmc.cu) once, with `cluster` CTAs a row (default:
+    card_cluster_size's choice), which updates the carry tensors in place
     (when they are contiguous with the kernel's types) and returns them,
     or raises."""
     dev = pos.device
@@ -470,7 +529,7 @@ def run_segment(nodes, pos, theta, ll, mask, iters, sd, noise: Noise,
     pos_c = pos.to(F64).contiguous()
     theta_c = theta.to(F64).contiguous()
     ll_c = ll.to(F64).contiguous()
-    c = [x.contiguous() for x in (
+    c = [_aligned(x.contiguous()) for x in (
         mask.to(torch.bool), iters.to(torch.int64), sd.to(F64),
         noise.deltas.float(), noise.walk_u.float(), noise.trunc_u.float(),
         noise.acc_u.float(), path_map_t.to(F64), counts25_t,
@@ -483,6 +542,7 @@ def run_segment(nodes, pos, theta, ll, mask, iters, sd, noise: Noise,
     rec_l = torch.empty((B, S), dtype=F64, device=dev)
     if B and S:
         lib = tree_mcmc_lib()
+        G = cluster or card_cluster_size(dev, B, K, N, Cc, counts25_t.dtype)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.tree_mcmc_segment_launch(
@@ -490,7 +550,7 @@ def run_segment(nodes, pos, theta, ll, mask, iters, sd, noise: Noise,
                 *[_ptr(x) for x in c[:9]], _COUNT_CODES[counts25_t.dtype],
                 *[_ptr(x) for x in c[9:]], float(con),
                 _ptr(rec_n), _ptr(rec_p), _ptr(rec_t), _ptr(rec_l),
-                B, S, K, hops, R, P, N, Cc, ctypes.c_void_p(stream))
+                B, S, K, hops, R, P, N, Cc, G, ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(
                 f"tree_mcmc_segment kernel launch failed: CUDA error {rc}")

@@ -51,14 +51,25 @@ class HaplocartConfig:
 
 
 def load_db(db_dir: str, device) -> hc.HaplocartDB:
-    """Load a HaploCart DB directory: the packed graph the JAX package
-    writes (graph.npz, PackedGraph.save) plus the reference's sidecar
-    file formats (`src/load.cpp`). GFA and GBZ graphs are not read by
-    the port yet."""
+    """Load a HaploCart DB directory: the packed graph (graph.npz as
+    PackedGraph.save writes it, else graph.gfa, else the reference's
+    graph.giraffe.gbz) plus the reference's sidecar file formats
+    (`src/load.cpp`)."""
     gnpz = os.path.join(db_dir, "graph.npz")
-    if not os.path.exists(gnpz):
-        raise FileNotFoundError(f"no graph.npz in {db_dir}")
-    graph = PackedGraph.load(gnpz)
+    ggfa = os.path.join(db_dir, "graph.gfa")
+    ggbz = os.path.join(db_dir, "graph.giraffe.gbz")
+    if os.path.exists(gnpz):
+        graph = PackedGraph.load(gnpz)
+    elif os.path.exists(ggfa):
+        graph = PackedGraph.from_gfa(ggfa)
+    elif os.path.exists(ggbz):
+        # the reference hcfiles layout ships graph.giraffe.gbz
+        # (`src/map_giraffe.cpp:41-55`)
+        from ..io.gbz import load_packed_graph
+
+        graph = load_packed_graph(ggbz)
+    else:
+        raise FileNotFoundError(f"no graph.npz/graph.gfa/.gbz in {db_dir}")
 
     paths_file = os.path.join(db_dir, "graph_paths")
     if os.path.exists(paths_file):

@@ -174,8 +174,8 @@ def run_soibean_inference(
     (`src/soibean.cpp:745-940`), the chains on `device`.
 
     The whole sweep (k = 1..K x chains) runs as ONE batch of K*C chain
-    rows (`run_tree_mcmc_ksweep`: one CUDA thread block a row on the
-    card); the reference runs each k and chain in turn.
+    rows (`run_tree_mcmc_ksweep`: one CUDA thread-block cluster a row
+    on the card); the reference runs each k and chain in turn.
 
     checkpoint_path: when set, chains run through the segmented
     resumable sampler; state snapshots to
