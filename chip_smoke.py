@@ -98,30 +98,39 @@ and prints no result):
    --device cuda -p hap1 --deam5p .. --deam3p ..` (the RY-space route of
    aDNA) once to warm up and twice timed: each run must write the four
    outputs, give a consensus of >= 0.9 x the haplotype's length with
-   >= 0.8 x of it called (not N), and launch both the SW kernel and
-   overlap_best_kernel; keelime_e2e_reads_per_s is the reads over the
-   map + analyse + assemble + consensus stages. One run with `--device
-   cpu` must write the same four outputs (.gz decompressed). Every
-   overlap_best_batch call of the warm-up run (find_overlaps' candidate
-   pairs, then each merge pass) must equal the plain version on the card,
-   the native host scan and the library's conv1d exactly, and is timed
-   beside its bound (overlap_bound_ms). Then `map --device cuda` and
+   >= 0.8 x of it called (not N), and launch the SW kernel, the warp
+   overlap kernel in find_overlaps and at least one merge pass, and the
+   block overlap kernel in at least one merge pass (find_overlaps' reads
+   are all short: its call skips the block kernel); keelime_e2e_reads_per_s is the reads over the map +
+   analyse + assemble + consensus stages. One run with `--device cpu`
+   must write the same four outputs (.gz decompressed). Every
+   overlap_best_indexed call of the warm-up run (find_overlaps' candidate
+   pairs, then each merge pass): the warp and block kernels each alone on
+   its length class (where it has pairs) against its plain version on the
+   card, the call against both plain versions, the native host scan and
+   the library's conv1d, all exactly, each kernel's max_abs_err taken
+   over its own pairs; each kernel timed beside its bound
+   (overlap_bound_ms), and the whole call. Some
+   merge pass must hold pairs for the block kernel (contigs longer than
+   L_WARP). Then `map --device cuda` and
    `map --device cpu` on the same reads must write equal alignments, and
    `duprm` must run on the card's GAM. Phase 7 runs after phase 6 and
    before phase 5.
 
-The kernels line lists the four kernels: gather_score_hash_kernel's
+The kernels line lists the five kernels: gather_score_hash_kernel's
 launches are those of the HaploCart, soibean, keelime and euka runs
 together, sw_scores_kernel's those of the object path,
-tree_mcmc_segment_kernel's those of the soibean runs and
-overlap_best_kernel's those of the keelime runs (each counted from 0
-just before its runs); ms, plain_ms and the bound are at the mapper's
-shape (sw_scores: B=32,768 full-length pairs; gather_score_hash: the
-pool batch), for the tree kernel over 200 post-burn-in steps of the
-soibean k-sweep batch (12 rows, Kmax 3, 4,000 reads, 255 paths) at the
-cluster size the wrapper chooses, and
-for overlap_best_kernel at the find_overlaps batch of the keelime
-warm-up run, with the library's grouped conv1d as library_ms.
+tree_mcmc_segment_kernel's those of the soibean runs and the two
+overlap kernels' those of the keelime runs (each counted from 0 just
+before its runs); ms, plain_ms and the bound are at the mapper's shape
+(sw_scores: B=32,768 full-length pairs; gather_score_hash: the pool
+batch), for the tree kernel over 200 post-burn-in steps of the soibean
+k-sweep batch (12 rows, Kmax 3, 4,000 reads, 255 paths) at the cluster
+size the wrapper chooses, for overlap_warp_kernel at the find_overlaps
+batch of the keelime warm-up run and for overlap_best_kernel at the
+long pairs of the largest merge batch that has some (each alone on its
+class, with the library's grouped conv1d on the same pairs as
+library_ms).
 Every timing line names the card and its power limit. The
 second-to-last lines are the nvidia-smi line and one JSON object
 describing the kernels; the last line is
@@ -1455,18 +1464,18 @@ def build_keelime_world(out_dir):
     return db_dir, fq, d5, d3, graph.path_names[KL_HAP], hap_len
 
 
-def overlap_work(packed, out_len, min_olen):
-    """(cells, bytes) of one overlap_best call: the cells are those the
-    scan of cpp/overlapbest.cpp::best_one visits, counted on the host from
-    the pairs and the results (the whole full-length block; the tail block
-    only where the full block fails, up to the winning start); the bytes
-    are every pair's characters and offsets read once and the two [n]
-    outputs written once."""
+def overlap_work(la, lb, won, min_olen, table_bytes):
+    """(cells, bytes) of an overlap scan of the pairs with lengths (la,
+    lb) and results `won` (the lengths found): the cells are those the
+    scan of cpp/overlapbest.cpp::best_one visits, counted on the host (the
+    whole full-length block; the tail block only where the full block
+    fails, up to the winning start); the bytes are the sequence table and
+    its offsets (`table_bytes`) and the pairs' two int32 indices read
+    once, and the two outputs written once."""
     import numpy as np
 
-    abuf, aoff, bbuf, boff = packed
-    la, lb = np.diff(aoff), np.diff(boff)
-    won = np.asarray(out_len, dtype=np.int64)
+    la, lb = np.asarray(la, np.int64), np.asarray(lb, np.int64)
+    won = np.asarray(won, dtype=np.int64)
     valid = (la >= min_olen) & (lb > 0)
     n_full = la - lb + 1
     full = valid & (n_full > 0) & (lb >= min_olen)
@@ -1477,8 +1486,7 @@ def overlap_work(packed, out_len, min_olen):
     count = np.where(tail, np.maximum(last - t0 + 1, 0), 0)
     # olen = la - s over s = t0 .. last: an arithmetic series
     cells += int((count * ((la - t0) + (la - last)) // 2).sum())
-    nbytes = len(abuf) + len(bbuf) + 8 * (len(aoff) + len(boff)) + 16 * len(la)
-    return cells, nbytes
+    return cells, table_bytes + 24 * len(la)
 
 
 def overlap_bound_ms(cells, nbytes):
@@ -1555,71 +1563,130 @@ def timed_once(run):
     return list(zip(ln, sc)), start.elapsed_time(end)
 
 
-def plain_version(pairs, min_olen, min_score, dev):
-    """keelime_device's plain version (overlap_scores_batch's chunks,
-    padded once on the host) on the card: (its results, the milliseconds
-    of that one run)."""
-    from vgan_tpu_torch.pipelines import keelime_device as kd
+def kernel_vs_plain(scan, plain, args, n):
+    """(kernel's outputs, plain version's outputs, the plain version's
+    milliseconds): both written into outputs preset to (-7, -7.0), so the
+    pairs of the other class must stay untouched by both."""
+    import torch
 
-    chunks = list(kd.padded_chunks(pairs, 4096, dev))
-
-    def run():
-        return [[t[:nb] for t in kd.winner(
-            kd.overlap_scores_plain(A, B, la, lb), la, lb, min_olen,
-            min_score)] for A, B, la, lb, nb in chunks]
-
-    return timed_once(run)
+    outs = []
+    for fn in (scan, plain):
+        out = (torch.full((n,), -7, dtype=torch.int64, device=args[0].device),
+               torch.full((n,), -7.0, dtype=torch.float64,
+                          device=args[0].device))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args, *out)
+        torch.cuda.synchronize()
+        outs.append(out)
+    return outs[0], outs[1], (time.perf_counter() - t0) * 1e3
 
 
 def check_overlap_calls(dev, calls, smi):
-    """Each overlap_best_batch call of a keelime run on the card against
-    the plain version on the card and the native scan on the CPU,
-    exactly, and the library's conv1d computing the same; each timed: the
-    kernel on the packed pairs already on the card (CUDA events, 5
-    calls), the plain version and the library on the card (their one
-    checked run, inputs already on the card), the native scan on the
-    host's threads, beside the bound."""
-    import numpy as np
+    """Each overlap_best_indexed call of a keelime run on the card: the
+    warp kernel and the block kernel, each alone on its class of the split
+    (where the class has pairs), against their plain versions on the card
+    (exactly; the other class untouched); the call's results against the
+    two plain versions together, the native scan on the CPU and the
+    library's conv1d. Each kernel's max_abs_err is the largest difference
+    in length or score over its own pairs, between its results alone, the
+    call's and its plain version's, and the call's and the native scan's.
+    Each kernel timed alone (CUDA events, 5 calls) beside its bound, and
+    the whole call; the plain versions and the library on the card (one
+    checked run, inputs already there), the native scan on the host's
+    threads."""
     import torch
 
     from vgan_tpu_torch.pipelines import keelime_device as kd
 
+    def max_err(x, y, ks):
+        return max(float((x[k][ks].double() - y[k][ks].double()).abs().max())
+                   for k in (0, 1))
+
     rows = []
-    for i, (pairs, min_olen, min_score, got) in enumerate(calls):
-        packed = kd.pack_pairs(pairs)
-        on_card = [torch.from_numpy(x).to(dev) for x in packed]
-        on_cpu = [torch.from_numpy(x) for x in packed]
+    for i, (*args, got) in enumerate(calls):
+        buf, off, ai, bi, min_olen, min_score = args[:6]
+        n = ai.numel()
+        host = [t.cpu() for t in (buf, off, ai, bi)]
         t0 = time.perf_counter()
-        nat = kd.overlap_best_packed(*on_cpu, min_olen, min_score)
+        nat = kd.overlap_best_indexed(*host, min_olen, min_score)
         native_ms = (time.perf_counter() - t0) * 1e3
-        native = list(zip(*(t.tolist() for t in nat)))
-        plain, plain_ms = plain_version(pairs, min_olen, min_score, dev)
-        library, library_ms = conv_library(pairs, min_olen, min_score, dev)
-        for name, other in (("plain", plain), ("native", native),
-                            ("library conv1d", library)):
-            if other != got:
-                bad = sum(1 for x, y in zip(got, other) if x != y)
-                raise AssertionError(f"overlap call {i}: kernel vs {name}: "
-                                     f"{bad} of {len(got)} pairs differ")
-        ms = cuda_ms(lambda: kd.overlap_best_packed(*on_card, min_olen,
-                                                    min_score), reps=5)
-        cells, nbytes = overlap_work(packed, [x[0] for x in got], min_olen)
+        nat = tuple(t.to(dev) for t in nat)
+        la_d = off[ai.long() + 1] - off[ai.long()]
+        order, n_short = kd.split_by_length(la_d)
+        scan_args = (buf, off, ai, bi, order, n_short, min_olen, min_score)
+        la, lb = (x.numpy() for x in (
+            host[1][host[2].long() + 1] - host[1][host[2].long()],
+            host[1][host[3].long() + 1] - host[1][host[3].long()]))
+        won = got[0].cpu().numpy()
+        buf_h, off_h = host[0].numpy(), host[1].numpy()
+        contents = [buf_h[off_h[k]:off_h[k + 1]].tobytes().decode("latin-1")
+                    for k in range(len(off_h) - 1)]
+        k_short = int(n_short)
+        # both plain classes together are the plain version of the call
+        whole = (torch.full((n,), -7, dtype=torch.int64, device=dev),
+                 torch.full((n,), -7.0, dtype=torch.float64, device=dev))
+        classes = {}
+        for name, scan, plain, ks in (
+                ("warp", kd.warp_scan, kd.plain_warp_scan, order[:k_short]),
+                ("block", kd.block_scan, kd.plain_block_scan,
+                 order[k_short:])):
+            if not ks.numel():
+                continue
+            ks = ks.long()
+            mine, ref, plain_ms = kernel_vs_plain(scan, plain, scan_args, n)
+            if not (torch.equal(mine[0], ref[0])
+                    and torch.equal(mine[1], ref[1])):
+                raise AssertionError(f"overlap call {i}: {name} kernel vs "
+                                     "plain")
+            for w, r in zip(whole, ref):
+                w[ks] = r[ks]
+            ms = cuda_ms(lambda: scan(*scan_args, *mine), reps=5)
+            ks_h = ks.cpu().numpy()
+            cells, nbytes = overlap_work(la[ks_h], lb[ks_h], won[ks_h],
+                                         min_olen,
+                                         buf.numel() + 8 * off.numel())
+            bms, by = overlap_bound_ms(cells, nbytes)
+            pairs = [(contents[a], contents[b]) for a, b in
+                     zip(host[2].numpy()[ks_h], host[3].numpy()[ks_h])]
+            library, library_ms = conv_library(pairs, min_olen, min_score,
+                                               dev)
+            want = list(zip(ref[0][ks].tolist(), ref[1][ks].tolist()))
+            if library != want:
+                raise AssertionError(f"overlap call {i}: {name} kernel vs "
+                                     "library conv1d")
+            classes[name] = dict(pairs=len(ks_h), cells=cells, bytes=nbytes,
+                                 ms=ms, plain_ms=plain_ms,
+                                 library_ms=library_ms, bound_ms=bms,
+                                 bound_by=by, max_len=int(la[ks_h].max()),
+                                 max_abs_err=max(max_err(mine, ref, ks),
+                                                 max_err(got, ref, ks),
+                                                 max_err(got, nat, ks)))
+        for name, other in (("plain", whole), ("native", nat)):
+            if not (torch.equal(got[0], other[0])
+                    and torch.equal(got[1], other[1])):
+                bad = int((got[0] != other[0]).sum())
+                raise AssertionError(f"overlap call {i}: kernels vs {name}: "
+                                     f"{bad} of {n} lengths differ")
+        call_ms = cuda_ms(lambda: kd.overlap_best_indexed(*args), reps=5)
+        cells, nbytes = overlap_work(la, lb, won, min_olen,
+                                     buf.numel() + 8 * off.numel())
         bms, by = overlap_bound_ms(cells, nbytes)
-        la = np.diff(packed[1])
-        err = max(abs(g[1] - o[1]) for other in (plain, native)
-                  for g, o in zip(got, other))
-        row = dict(pairs=len(pairs), max_len=int(la.max()),
-                   min_olen=min_olen, cells=cells, bytes=nbytes, ms=ms,
-                   plain_ms=plain_ms, native_ms=native_ms,
-                   library_ms=library_ms, bound_ms=bms, bound_by=by,
-                   max_abs_err=err)
+        row = dict(pairs=n, max_len=int(la.max()), min_olen=min_olen,
+                   cells=cells, bytes=nbytes, call_ms=call_ms,
+                   native_ms=native_ms, bound_ms=bms, bound_by=by, **classes)
         rows.append(row)
-        log(f"overlap_best call {i}: {len(pairs)} pairs (longest a "
-            f"{row['max_len']} bp, min_olen {min_olen}), {cells} cells: "
-            f"kernel {ms:.4f} ms ({100 * bms / ms:.2f} % of the {bms:.4f} "
-            f"ms bound, {by}-bound), plain {plain_ms:.2f} ms, native scan "
-            f"{native_ms:.2f} ms, library conv1d {library_ms:.2f} ms; equal "
-            f"to plain, native and the library; on {smi}")
+        log(f"overlap call {i}: {n} pairs (longest a {row['max_len']} bp, "
+            f"min_olen {min_olen}), {cells} cells: the call {call_ms:.4f} "
+            f"ms ({100 * bms / call_ms:.2f} % of the {bms:.4f} ms bound, "
+            f"{by}-bound), native scan {native_ms:.2f} ms; " + "; ".join(
+                f"{k} kernel {c['pairs']} pairs {c['ms']:.4f} ms "
+                f"({100 * c['bound_ms'] / c['ms']:.2f} % of "
+                f"{c['bound_ms']:.4f} ms), plain {c['plain_ms']:.2f} ms, "
+                f"conv1d {c['library_ms']:.2f} ms, max abs err "
+                f"{c['max_abs_err']}"
+                for k, c in classes.items()) + "; every kernel equal to its "
+            f"plain version, the call to plain, native and conv1d; on {smi}")
     return rows
 
 
@@ -1651,12 +1718,14 @@ def phase_keelime(dev, out_dir, clock):
                 "-fq1", fq, "-o", prefix, "-p", path, "--deam5p", d5,
                 "--deam3p", d3, "--device", device, "--profile"]
 
-    # the warm-up run keeps each overlap_best_batch call's inputs and result
-    batch, calls = kd.overlap_best_batch, []
+    # the warm-up run keeps each overlap_best_indexed call's inputs and
+    # results (find_overlaps' batch, then one a merge pass)
+    indexed, calls = kd.overlap_best_indexed, []
 
-    def keeping(pairs, min_olen, min_score, device):
-        out = batch(pairs, min_olen, min_score, device)
-        calls.append((pairs, min_olen, min_score, out))
+    def keeping(*args):
+        out = indexed(*args)
+        if args[2].numel():  # an empty call launches nothing
+            calls.append(args + (out,))
         return out
 
     stage_names = ("map", "analyse", "assemble", "consensus")
@@ -1668,16 +1737,18 @@ def phase_keelime(dev, out_dir, clock):
         for i in range(3):  # one warm-up run, two timed
             prefix = os.path.join(out_dir, f"kl{i}_")
             profiling.PROFILER.stages.clear()
-            before = (sw.LAUNCHES["gather_score_hash"],
-                      kd.LAUNCHES["overlap_best"])
-            kd.overlap_best_batch = batch if i else keeping
+            before = dict(sw.LAUNCHES, **kd.LAUNCHES)
+            kd.overlap_best_indexed = indexed if i else keeping
             t0 = time.perf_counter()
             if cli.main(argv(prefix, str(dev))) != 0:
                 raise AssertionError("cli keelime failed")
             wall = time.perf_counter() - t0
-            kd.overlap_best_batch = batch
-            if sw.LAUNCHES["gather_score_hash"] <= before[0] or \
-                    kd.LAUNCHES["overlap_best"] < before[1] + 2:
+            kd.overlap_best_indexed = indexed
+            # the warp kernel in find_overlaps and at least one merge
+            # pass, the block kernel in at least one merge pass
+            least = dict(gather_score_hash=1, overlap_warp=2, overlap_best=1)
+            now = dict(sw.LAUNCHES, **kd.LAUNCHES)
+            if any(now[k] < before[k] + m for k, m in least.items()):
                 raise AssertionError(f"keelime run {i} launched "
                                      f"{dict(sw.LAUNCHES, **kd.LAUNCHES)}")
             outs = keelime_outputs(prefix)
@@ -1697,7 +1768,7 @@ def phase_keelime(dev, out_dir, clock):
                 f"{' + '.join(stage_names)}; consensus {len(cons)} bp, "
                 f"{called} called, {runs[-1]['contigs']} contigs")
     finally:
-        kd.overlap_best_batch = batch
+        kd.overlap_best_indexed = indexed
     launches = dict(sw.LAUNCHES, **kd.LAUNCHES)
     log(f"keelime: kernel launches in the 3 runs: {launches}")
     card = keelime_outputs(os.path.join(out_dir, "kl0_"))
@@ -1741,12 +1812,19 @@ def phase_keelime(dev, out_dir, clock):
     log(f"keelime: keelime_e2e_reads_per_s "
         f"{', '.join(f'{x:.1f}' for x in e2e)} on {smi}")
     merge = overlap[1:] or overlap[:1]
-    return dict(launches=launches["overlap_best"],
+    # the block kernel's pairs: contigs longer than L_WARP in merge passes
+    long_merge = [r for r in merge if "block" in r]
+    if not long_merge or "warp" not in overlap[0]:
+        raise AssertionError("no merge pass of the warm-up run had a pair "
+                             "for the block kernel, or find_overlaps none "
+                             "for the warp kernel")
+    return dict(launches={k: launches[k] for k in kd.LAUNCHES},
                 sw_launches=launches["gather_score_hash"], runs=runs,
                 reads_per_s=e2e, cpu_run_s=cpu_s, cpu_stages_s=cpu_st,
                 overlap=overlap,
                 find_overlaps=overlap[0],
                 largest_merge=max(merge, key=lambda r: r["pairs"]),
+                block_merge=max(long_merge, key=lambda r: r["block"]["pairs"]),
                 map_card_s=recs[str(dev)][1], map_cpu_s=recs["cpu"][1],
                 duprm_kept=kept)
 
@@ -1813,13 +1891,15 @@ def main() -> int:
         keelime_duprm_kept=kl["duprm_kept"])))
     # launches: sw_scores from the mapper's object path, gather_score_hash
     # from the HaploCart, soibean, keelime and euka CLI runs,
-    # tree_mcmc_segment from the soibean CLI runs, overlap_best from the
-    # keelime CLI runs (each counted from 0 just before its runs); times and
-    # bounds at the timing shape, at the mapper's pool batch, over
-    # SB_TIMED_STEPS post-burn-in steps of the soibean k-sweep batch and at
-    # the find_overlaps batch of the keelime warm-up run
+    # tree_mcmc_segment from the soibean CLI runs, the two overlap
+    # kernels from the keelime CLI runs (each counted from 0 just before its
+    # runs); times and bounds at the timing shape, at the mapper's pool
+    # batch, over SB_TIMED_STEPS post-burn-in steps of the soibean k-sweep
+    # batch, at the find_overlaps batch of the keelime warm-up run (warp)
+    # and at the long pairs of the largest merge batch with some (block)
     t_sw, t_gsh, t_tree = k["sw"], k["gsh"]["pool"], sb["kernel"]["post"]
-    t_kl = kl["find_overlaps"]
+    t_warp = kl["find_overlaps"]["warp"]
+    t_block = kl["block_merge"]["block"]
     log(f"smoke total {time.perf_counter() - START:.0f} s on {smi}")
     print(smi)
     print(json.dumps({"kernels": [{
@@ -1865,17 +1945,31 @@ def main() -> int:
         "bound_by": t_tree["bound_by"],
         "library_ms": None,
     }, {
+        "name": "overlap_warp_kernel",
+        "route": "cuda",
+        "source": KL_SOURCE,
+        "replaces": KL_REPLACES,
+        "launches": kl["launches"]["overlap_warp"],
+        "max_abs_err": max(r["warp"]["max_abs_err"] for r in kl["overlap"]
+                           if "warp" in r),
+        "ms": t_warp["ms"],
+        "plain_ms": t_warp["plain_ms"],
+        "bound_ms": t_warp["bound_ms"],
+        "bound_by": t_warp["bound_by"],
+        "library_ms": t_warp["library_ms"],
+    }, {
         "name": "overlap_best_kernel",
         "route": "cuda",
         "source": KL_SOURCE,
         "replaces": KL_REPLACES,
-        "launches": kl["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in kl["overlap"]),
-        "ms": t_kl["ms"],
-        "plain_ms": t_kl["plain_ms"],
-        "bound_ms": t_kl["bound_ms"],
-        "bound_by": t_kl["bound_by"],
-        "library_ms": t_kl["library_ms"],
+        "launches": kl["launches"]["overlap_best"],
+        "max_abs_err": max(r["block"]["max_abs_err"] for r in kl["overlap"]
+                           if "block" in r),
+        "ms": t_block["ms"],
+        "plain_ms": t_block["plain_ms"],
+        "bound_ms": t_block["bound_ms"],
+        "bound_by": t_block["bound_by"],
+        "library_ms": t_block["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

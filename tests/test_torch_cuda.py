@@ -581,14 +581,18 @@ def test_tree_ksweep_on_card_equals_cpu(dev, monkeypatch):
 
 # ------------------------------------------------------------ keelime
 def _overlap_all_equal(dev, pairs, min_olen, min_score):
-    """overlap_best_kernel (one launch) against the plain version on the
-    card and the native scan on the CPU, exactly."""
+    """The card's scan (one launch of the warp kernel on the short pairs,
+    and of the block kernel on the long ones where a string is longer than
+    L_WARP) against the plain version on the card and the native scan on
+    the CPU, exactly."""
     from vgan_tpu_torch.pipelines import keelime_device as kd
 
     kd.reset_launches()
     got = kd.overlap_best_batch(pairs, min_olen, min_score, dev)
     torch.cuda.synchronize()
-    assert kd.LAUNCHES["overlap_best"] == 1
+    longest = max(len(s) for p in pairs for s in p)
+    assert kd.LAUNCHES == {"overlap_warp": 1,
+                           "overlap_best": int(longest > kd.L_WARP)}
     assert got == kd.overlap_best_batch(pairs, min_olen, min_score, "cpu")
     assert got == kd.overlap_scores_batch(pairs, min_olen, min_score,
                                           device=dev)
@@ -640,6 +644,99 @@ def test_overlap_best_kernel_mitogenome_length(dev):
     assert got[0] == (16569, 3 * 16569.0) and got[1][0] == 16280
 
 
+def _overlap_pairs(case):
+    """(pairs, min_olen, min_score) of the per-kernel card tests."""
+    import _torch_world as world
+    from vgan_tpu_torch.pipelines import keelime_device as kd
+
+    rng = np.random.default_rng(31)
+    acgt = np.array(list("ACGT"))
+    L = kd.L_WARP
+    if case == "reads64":  # find_overlaps' shape: 64-bp x 64-bp
+        reads = ["".join(rng.choice(acgt, 64)) for _ in range(200)]
+        pairs = [(reads[i], reads[j])
+                 for i, j in rng.integers(0, 200, (20_000, 2))]
+        pairs += [(r[k:] + r[:k], r) for r in reads[:50]
+                  for k in (0, 1, 13, 40)]
+        return pairs, 10, 10.0
+    if case == "traps":
+        return (world.overlap_trap_pairs()
+                + world.overlap_adversarial_pairs(), 3, 5.0)
+    if case == "l_warp_edges":
+        core = "".join(rng.choice(acgt, L + 200))
+        pairs = []
+        for la in (L - 1, L, L + 1):
+            for lb in (la, la - 31, la - 32, 40, L + 9):
+                k = int(rng.integers(0, la))
+                pairs.append((core[:la], (core[k:la] + core)[:lb]))
+        return pairs, 1, 10.0
+    if case == "la_lt_lb":
+        return ([("ACGT" * 5, "ACGT" * 40), ("ACG", "ACGTACGT"),
+                 ("ACGTAC", "ACGTACGTAC"), ("A" * 300, "A" * 2000),
+                 ("A" * (L + 3), "A" * (L + 40))], 5, 1.0)
+    if case == "mitogenome":
+        seq = "".join(rng.choice(acgt, 16569))
+        return ([(seq, seq), (seq[:16400], seq[120:]),
+                 (seq, seq[::-1][:4000]), ("ACGT" * 16, "GT" + "ACGT" * 10)],
+                40, 60.0)
+    if case == "mixed":  # both classes, shuffled
+        pairs = []
+        for i in range(600):
+            la = int(rng.choice([64, 200, L - 1, L, L + 1, 1500, 2300]))
+            a = "".join(rng.choice(acgt, la))
+            lb = int(rng.integers(1, 2400))
+            k = int(rng.integers(0, la))
+            b = (a[k:] + "".join(rng.choice(acgt, lb)))[:lb]
+            pairs.append((a, b))
+        return [pairs[i] for i in rng.permutation(len(pairs))], 1, 10.0
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["reads64", "traps", "l_warp_edges",
+                                  "la_lt_lb", "mitogenome", "mixed"])
+def test_overlap_kernels_each_equal_plain_and_native(dev, case):
+    """overlap_warp_kernel and overlap_best_kernel, each alone on its
+    class of the split, against their plain versions on the card (pairs
+    of the other class left untouched); the whole indexed scan against
+    the native scan on the CPU; and two launches of it bit-equal."""
+    from vgan_tpu_torch.pipelines import keelime_device as kd
+
+    pairs, min_olen, min_score = _overlap_pairs(case)
+    ids = {}
+    ai = np.array([ids.setdefault(a, len(ids)) for a, _ in pairs], np.int32)
+    bi = np.array([ids.setdefault(b, len(ids)) for _, b in pairs], np.int32)
+    host = [torch.from_numpy(x) for x in kd.intern(list(ids)) + (ai, bi)]
+    buf, off, ai_d, bi_d = (t.to(dev) for t in host)
+    kd.reset_launches()
+    la = off[ai_d.long() + 1] - off[ai_d.long()]
+    order, n_short = kd.split_by_length(la)
+    n = len(pairs)
+    for scan, plain in ((kd.warp_scan, kd.plain_warp_scan),
+                        (kd.block_scan, kd.plain_block_scan)):
+        outs = []
+        for fn in (scan, plain):
+            out = (torch.full((n,), -7, dtype=torch.int64, device=dev),
+                   torch.full((n,), -7.0, dtype=torch.float64, device=dev))
+            fn(buf, off, ai_d, bi_d, order, n_short, min_olen, min_score,
+               *out)
+            outs.append(out)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0][0], outs[1][0])
+        assert torch.equal(outs[0][1], outs[1][1])
+    assert kd.LAUNCHES == {"overlap_warp": 1, "overlap_best": 1}
+    got = [kd.overlap_best_indexed(buf, off, ai_d, bi_d, min_olen,
+                                   min_score) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0][0], got[1][0])
+    assert torch.equal(got[0][1], got[1][1])
+    native = kd.overlap_best_indexed(*host, min_olen, min_score)
+    assert torch.equal(got[0][0].cpu(), native[0])
+    assert torch.equal(got[0][1].cpu(), native[1])
+    if case in ("l_warp_edges", "mixed"):
+        la_h = la.cpu().numpy()
+        assert (la_h <= kd.L_WARP).any() and (la_h > kd.L_WARP).any()
+
+
 def _keelime_world(tmp_path):
     import _torch_world as world
     from vgan_tpu_torch.graph import synth
@@ -656,10 +753,10 @@ def _keelime_world(tmp_path):
     return str(db), fq, d5, d3
 
 
-def test_keelime_cli_on_card_equals_cpu(dev, tmp_path):
+def test_keelime_cli_on_card_equals_cpu(dev, tmp_path, monkeypatch):
     """`keelime --device cuda` writes the four outputs of `--device cpu`
     (the .gz files decompressed), both batched scans through the
-    kernel."""
+    kernels."""
     import gzip
 
     from vgan_tpu_torch import cli
@@ -667,8 +764,17 @@ def test_keelime_cli_on_card_equals_cpu(dev, tmp_path):
     from vgan_tpu_torch.pipelines import keelime_device as kd
 
     db, fq, d5, d3 = _keelime_world(tmp_path)
+    indexed, longest = kd.overlap_best_indexed, []
+
+    def keeping(seq_buf, seq_off, ai, bi, min_olen, min_score, top):
+        if ai.numel():  # an empty call launches nothing
+            longest.append(top)
+        return indexed(seq_buf, seq_off, ai, bi, min_olen, min_score, top)
+
+    monkeypatch.setattr(kd, "overlap_best_indexed", keeping)
     outs = {}
     for name in ("cuda", "cpu"):
+        longest.clear()
         kd.reset_launches()
         sw.reset_launches()
         prefix = str(tmp_path / f"{name}_")
@@ -677,11 +783,15 @@ def test_keelime_cli_on_card_equals_cpu(dev, tmp_path):
                          d5, "--deam3p", d3, "--device",
                          str(dev) if name == "cuda" else "cpu"]) == 0
         if name == "cuda":
-            # find_overlaps and at least one merge pass
-            assert kd.LAUNCHES["overlap_best"] >= 2
+            # find_overlaps and at least one merge pass, each a launch of
+            # the warp kernel, and of the block kernel where the call's
+            # table holds a sequence longer than L_WARP
+            assert kd.LAUNCHES["overlap_warp"] == len(longest) >= 2
+            assert kd.LAUNCHES["overlap_best"] == sum(
+                x > kd.L_WARP for x in longest)
             assert sw.LAUNCHES["gather_score_hash"] >= 1
         else:
-            assert kd.LAUNCHES["overlap_best"] == 0
+            assert max(kd.LAUNCHES.values()) == 0
         outs[name] = {}
         for f in ("Contig.fa.gz", "Consensus.fa.gz", "ProbabilityMatrix.tsv",
                   "CountMatrix.tsv"):

@@ -168,19 +168,34 @@ def tree_mcmc_lib() -> ctypes.CDLL:
 
 
 def keelime_lib() -> ctypes.CDLL:
-    """The CUDA overlap-scan kernel (csrc/keelime.cu), built with nvcc
-    for sm_90a on first use, with its C entry point typed."""
+    """The CUDA overlap-scan kernels (csrc/keelime.cu), built with nvcc
+    for sm_90a on first use, with their C entry points typed."""
     lib = _loaded.get("keelime")
     if lib is None:
         lib = _nvcc_lib("vgan_keelime", KEELIME_SRC)
-        vp, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-        lib.overlap_best_launch.restype = ctypes.c_int
-        lib.overlap_best_launch.argtypes = [
-            vp, vp, vp, vp, i64,       # abuf, aoff, bbuf, boff, n
-            vp, vp,                    # lut [256] uint8, table2 [16, 16] int32
-            i64, f64,                  # min_olen, min_score
-            vp, vp,                    # out_len, out_score
-            vp,                        # stream
-        ]
+        _type_keelime(lib)
         _loaded["keelime"] = lib
     return lib
+
+
+def _type_keelime(lib: ctypes.CDLL) -> None:
+    vp, i32, i64, f64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                         ctypes.c_double)
+    lib.overlap_warp_launch.restype = i32
+    lib.overlap_warp_launch.argtypes = [
+        vp, vp, vp, vp,            # seq, off [S + 1], ai, bi
+        vp, vp, i64,               # order [n] int32, n_short [1] int32, n
+        vp, vp,                    # lut [256] uint8, table2 [16, 16] int8
+        i64, f64,                  # min_olen, min_score
+        vp, vp,                    # out_len, out_score
+        vp,                        # stream
+    ]
+    lib.overlap_best_launch.restype = i32
+    lib.overlap_best_launch.argtypes = [
+        vp, vp, vp, vp,            # seq, off [S + 1], ai, bi
+        vp, vp, i64,               # order [n] int32, n_short [1] int32, n
+        vp, vp,                    # lut [256] uint8, table2 [16, 16] int32
+        i64, f64,                  # min_olen, min_score
+        vp, vp,                    # out_len, out_score
+        vp,                        # stream
+    ]

@@ -1,8 +1,8 @@
 # Copied from vgan_tpu/pipelines/keelime.py; imports repointed to this
 # package, the two batched overlap scans routed through
-# keelime_device.overlap_best_batch (the CUDA kernel on a card; its CPU route
-# holds the native batch call that was overlap_best_batch_native here), the
-# multihost branches dropped.
+# keelime_device.overlap_best_indexed on a sequence table and index arrays
+# (the CUDA kernels on a card; its CPU route holds the native batch call that
+# was overlap_best_batch_native here), the multihost branches dropped.
 """keelime: reference-guided hybrid assembly of a consensus genome.
 
 Functional equivalent of the `assembly` class (`src/assembly.cpp`,
@@ -844,9 +844,12 @@ def find_overlaps(
     score gate and end-node containment in the partner's node list.
     `pairs` is initial_overlap's flat (pi, pj) candidate arrays. All
     distinct candidate pairs score in one batch on `device`
-    (keelime_device.overlap_best_batch: the CUDA kernel on a card, the
-    threaded native scan on the CPU) with identical results."""
-    from .keelime_device import overlap_best_batch
+    (keelime_device.overlap_best_indexed over the interned contents: the
+    CUDA kernels on a card, the threaded native scan on the CPU) with
+    identical results."""
+    import torch
+
+    from .keelime_device import intern, longest_of, overlap_best_indexed
 
     n_frags = len(frags)
     g = GraphAss(n_frags)
@@ -877,10 +880,13 @@ def find_overlaps(
     keys = np.unique(
         np.concatenate([ci * C + cj, cj * C + ci])
     )
-    order = [(contents[int(k) // C], contents[int(k) % C]) for k in keys]
-    results_u = overlap_best_batch(order, min_olen, len_min, device)
-    res_len = np.fromiter((r[0] for r in results_u), np.int64, len(order))
-    res_sc = np.fromiter((r[1] for r in results_u), np.float64, len(order))
+    dev = torch.device(device)
+    table = intern(contents)
+    res_len, res_sc = (t.cpu().numpy() for t in overlap_best_indexed(
+        *(torch.from_numpy(x).to(dev) for x in table),
+        torch.from_numpy((keys // C).astype(np.int32)).to(dev),
+        torch.from_numpy((keys % C).astype(np.int32)).to(dev),
+        min_olen, len_min, longest_of(table[1])))
     k1 = np.searchsorted(keys, ci * C + cj)
     k2 = np.searchsorted(keys, cj * C + ci)
     l1, s1 = res_len[k1], res_sc[k1]
@@ -1453,8 +1459,12 @@ def merge_overlapping_contigs(
     device,
 ) -> List[Contig]:
     """mergeOverlappingContigs (src/assembly.cpp:3069-3345). The
-    candidate pairs' overlap scans run as one batch on `device`."""
-    from .keelime_device import overlap_best_batch
+    candidate pairs' overlap scans run as one batch on `device`
+    (keelime_device.overlap_best_indexed over every contig's ry and seq,
+    interned once)."""
+    import torch
+
+    from .keelime_device import intern, longest_of, overlap_best_indexed
 
     contigs = remove_subset_contigs(contigs)
     # exact prefilter: try_merge_contigs is a no-merge for pairs with
@@ -1475,13 +1485,18 @@ def merge_overlapping_contigs(
     # `device` (identical winners to the per-pair scorer)
     pre_by_pair = None
     if pairs_sorted:
-        quad = []
-        for i, j in pairs_sorted:
-            quad.append((contigs[i].ry, contigs[j].ry))
-            quad.append((contigs[j].ry, contigs[i].ry))
-            quad.append((contigs[i].seq, contigs[j].seq))
-            quad.append((contigs[j].seq, contigs[i].seq))
-        scored = overlap_best_batch(quad, min_olen, len_min, device)
+        # contig c's ry is sequence 2c of the table, its seq 2c + 1; a
+        # candidate's four scans: (ry_i, ry_j), (ry_j, ry_i), (seq_i,
+        # seq_j), (seq_j, seq_i)
+        ci, cj = (2 * np.array(pairs_sorted, dtype=np.int32)).T
+        ai = np.stack([ci, cj, ci + 1, cj + 1], axis=1).reshape(-1)
+        bi = np.stack([cj, ci, cj + 1, ci + 1], axis=1).reshape(-1)
+        dev = torch.device(device)
+        table = intern([s for c in contigs for s in (c.ry, c.seq)])
+        ln, sc = overlap_best_indexed(
+            *(torch.from_numpy(x).to(dev) for x in table + (ai, bi)),
+            min_olen, len_min, longest_of(table[1]))
+        scored = list(zip(ln.cpu().tolist(), sc.cpu().tolist()))
         pre_by_pair = [
             tuple(scored[4 * t : 4 * t + 4])
             for t in range(len(pairs_sorted))

@@ -15,22 +15,29 @@ is min(len_b, len_a − s). The winner is the reference's: the longest
 qualifying overlap (olen >= min_olen, score >= min_score), ties by
 score.
 
-* `overlap_best_batch(pairs, min_olen, min_score, device)` is what
-  keelime calls. On a CUDA device it packs the pairs once and launches
-  `overlap_best_kernel` (csrc/keelime.cu); on the CPU it runs the
-  threaded native scan (cpp/overlapbest.cpp), as the JAX package does
-  in production.
-* `overlap_best_packed` is the tensor-level wrapper both routes share.
-  It counts `LAUNCHES["overlap_best"]` where it launches the kernel.
-* `overlap_scores_batch(pairs, min_olen, min_score, chunk, device)` is
-  the plain PyTorch version of JAX's `overlap_scores_batch`: the
-  [N, La] score matrix as `_overlap_scores_device` builds it, and its
-  winner rule. It is the oracle of the tests and of the smoke test on
-  the card, never on the CLI's path.
+* `overlap_best_indexed(seq_buf, seq_off, ai, bi, min_olen, min_score,
+  longest)` is what keelime calls: pair i is (sequence ai[i], sequence
+  bi[i]) of one table (the latin-1 bytes of every sequence back to back
+  and their offsets). On a CUDA device the pairs are split by a's length
+  (`split_by_length`) and scanned by `overlap_warp_kernel` (la <=
+  L_WARP, a warp a pair) and `overlap_best_kernel` (longer, a block a
+  pair; not launched when the caller's `longest` is at most L_WARP),
+  both in csrc/keelime.cu on the current stream, each mapping the bytes
+  to the 16-code alphabet as it stages a pair; on the CPU the codes are
+  a torch op (`seq_codes`) and the threaded native scan
+  (cpp/overlapbest.cpp) runs on the pairs gathered from the table, as
+  the JAX package runs it in production.
+* `overlap_best_batch(pairs, min_olen, min_score, device)` takes string
+  pairs: it interns them into a table and calls overlap_best_indexed.
+* Each kernel's wrapper (`warp_scan`, `block_scan`) counts
+  `LAUNCHES[name]` where it launches the kernel. Their plain versions
+  (`plain_warp_scan`, `plain_block_scan`, both on `plain_indexed`) and `overlap_scores_batch(pairs, ...)`, the plain
+  PyTorch version of JAX's overlap_scores_batch, are the oracles of the
+  tests and of the smoke test on the card, never on the CLI's path.
 
 Every score is a multiple of 0.5 (the table holds halves only), so the
-kernel's int32 sums of the doubled table, the native scan's and the f32
-sums of the plain version are all exact: the three agree bit for bit.
+kernels' int32 sums of the doubled table, the native scan's and the f32
+sums of the plain versions are all exact: they agree bit for bit.
 """
 from __future__ import annotations
 
@@ -43,8 +50,13 @@ import torch
 
 from .keelime import _ALPHABET, _COMBINED, _enc
 
-LAUNCHES: Dict[str, int] = {"overlap_best": 0}
+LAUNCHES: Dict[str, int] = {"overlap_warp": 0, "overlap_best": 0}
 """Kernel launches since the last reset_launches()."""
+
+L_WARP = 256
+"""Pairs with la <= L_WARP scan a warp a pair (overlap_warp_kernel), the
+longer ones a block a pair (overlap_best_kernel): kLWarp of
+csrc/keelime.cu, which sizes the warp kernel's shared memory."""
 
 
 def reset_launches() -> None:
@@ -73,123 +85,251 @@ def code_tables() -> Tuple[np.ndarray, np.ndarray]:
     return lut, t2
 
 
-def pack_pairs(pairs: Sequence[Tuple[str, str]]):
-    """The pair list as the native scan and the kernel take it: (abuf
-    uint8, aoff [n+1] int64, bbuf uint8, boff [n+1] int64), the latin-1
-    bytes of all a's (b's) back to back and their offsets."""
-    n = len(pairs)
-    aoff = np.zeros(n + 1, dtype=np.int64)
-    boff = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum([len(a) for a, _ in pairs], out=aoff[1:])
-    np.cumsum([len(b) for _, b in pairs], out=boff[1:])
-    abuf = _enc("".join(a for a, _ in pairs)).copy()  # writable, for torch
-    bbuf = _enc("".join(b for _, b in pairs)).copy()
-    return abuf, aoff, bbuf, boff
+_TABLE_CACHE: Dict[torch.device, Dict[str, torch.Tensor]] = {}
 
 
-# ------------------------------------------------------------ the scan
-def _check_packed(abuf, aoff, bbuf, boff) -> torch.device:
-    dev = abuf.device
-    for t in (aoff, bbuf, boff):
-        if t.device != dev:
-            raise ValueError(f"tensors on different devices: {dev} and "
-                             f"{t.device}")
-    if abuf.dtype != torch.uint8 or bbuf.dtype != torch.uint8:
-        raise ValueError("overlap_best_packed: abuf and bbuf must be uint8")
-    if aoff.dtype != torch.int64 or boff.dtype != torch.int64 \
-            or aoff.dim() != 1 or aoff.shape != boff.shape:
-        raise ValueError("overlap_best_packed: aoff and boff must be int64 "
-                         "[n + 1]")
-    return dev
-
-
-def overlap_best_packed(abuf, aoff, bbuf, boff, min_olen: int,
-                        min_score: float):
-    """(out_len [n] int64, out_score [n] f64) of every packed pair (see
-    pack_pairs), on the inputs' device.
-
-    CUDA tensors launch overlap_best_kernel (csrc/keelime.cu) on the
-    current stream; a failed build or launch raises. CPU tensors run
-    the threaded native scan (cpp/overlapbest.cpp) on the same packed
-    arrays: this is the port's one CPU route that is the native library
-    and not the plain torch version (overlap_scores_batch), because the
-    native scan is what keelime runs on the host in production."""
-    dev = _check_packed(abuf, aoff, bbuf, boff)
-    n = aoff.shape[0] - 1
-    # both routes write every element
-    out_len = torch.empty(n, dtype=torch.int64, device=dev)
-    out_score = torch.empty(n, dtype=torch.float64, device=dev)
-    if n == 0:
-        return out_len, out_score
-    if dev.type == "cpu":
-        from . import keelime
-
-        lib = keelime._ovb_lib()  # also builds keelime._COMBINED2_I16
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        i16p = ctypes.POINTER(ctypes.c_int16)
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        f64p = ctypes.POINTER(ctypes.c_double)
-
-        def p(t, typ):
-            return ctypes.cast(t.data_ptr(), typ)
-
-        lib.overlap_best_batch(
-            p(abuf.contiguous(), u8p), p(aoff.contiguous(), i64p),
-            p(bbuf.contiguous(), u8p), p(boff.contiguous(), i64p),
-            n, keelime._COMBINED2_I16.ctypes.data_as(i16p), min_olen,
-            float(min_score),
-            p(out_len, i64p), p(out_score, f64p),
-            min(8, os.cpu_count() or 1),
-        )
-        return out_len, out_score
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    from .._native import keelime_lib
-
-    lut, t2 = _device_tables(dev)
-    a, ao = abuf.contiguous(), aoff.contiguous()
-    b, bo = bbuf.contiguous(), boff.contiguous()
-    lib = keelime_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.overlap_best_launch(
-            a.data_ptr(), ao.data_ptr(), b.data_ptr(), bo.data_ptr(), n,
-            lut.data_ptr(), t2.data_ptr(), int(min_olen), float(min_score),
-            out_len.data_ptr(), out_score.data_ptr(),
-            ctypes.c_void_p(stream),
-        )
-    if rc != 0:
-        raise RuntimeError(f"overlap_best kernel launch failed: CUDA error "
-                           f"{rc}")
-    LAUNCHES["overlap_best"] += 1
-    return out_len, out_score
-
-
-_TABLE_CACHE: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def _device_tables(dev: torch.device):
-    """code_tables() on `dev`, uploaded once a device."""
+def _tables(dev: torch.device) -> Dict[str, torch.Tensor]:
+    """code_tables() on `dev`, made once a device: the lut, the doubled
+    table as int32 and as int8 (both [16, 16] row-major), its f32 half
+    for the plain version, and (on the CPU) the native scan's [256 x 256]
+    int16 table indexed by (code_a << 8) | code_b."""
     tabs = _TABLE_CACHE.get(dev)
     if tabs is None:
         lut, t2 = code_tables()
-        tabs = (torch.from_numpy(lut).to(dev),
-                torch.from_numpy(t2.reshape(-1)).to(dev))
+        tabs = dict(lut=torch.from_numpy(lut).to(dev),
+                    t2=torch.from_numpy(t2.reshape(-1)).to(dev),
+                    t2_i8=torch.from_numpy(t2.astype(np.int8).reshape(-1))
+                    .to(dev),
+                    half=torch.from_numpy(t2.astype(np.float32) / 2).to(dev))
+        if dev.type == "cpu":
+            native = np.zeros((256, 256), dtype=np.int16)
+            native[:N_CODES, :N_CODES] = t2
+            tabs["native"] = torch.from_numpy(native.reshape(-1))
         _TABLE_CACHE[dev] = tabs
     return tabs
 
 
+def intern(strings: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+    """(seq_buf uint8, seq_off [S+1] int64): the latin-1 bytes of the S
+    strings back to back, and their offsets."""
+    off = np.zeros(len(strings) + 1, dtype=np.int64)
+    np.cumsum([len(s) for s in strings], out=off[1:])
+    return _enc("".join(strings)).copy(), off  # writable, for torch
+
+
+# ------------------------------------------------------------ the scan
+def _native_lib():
+    from . import keelime
+
+    return keelime._ovb_lib()
+
+
+def _check_indexed(seq_buf, seq_off, ai, bi) -> torch.device:
+    dev = seq_buf.device
+    for t in (seq_off, ai, bi):
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {dev} and "
+                             f"{t.device}")
+    if seq_buf.dtype != torch.uint8 or seq_buf.dim() != 1:
+        raise ValueError("overlap_best_indexed: seq_buf must be uint8 [B]")
+    if seq_off.dtype != torch.int64 or seq_off.dim() != 1:
+        raise ValueError("overlap_best_indexed: seq_off must be int64 "
+                         "[S + 1]")
+    if ai.dtype != torch.int32 or bi.dtype != torch.int32 \
+            or ai.dim() != 1 or ai.shape != bi.shape:
+        raise ValueError("overlap_best_indexed: ai and bi must be int32 [n]")
+    return dev
+
+
+def seq_codes(seq_buf: torch.Tensor) -> torch.Tensor:
+    """The table's bytes mapped to the 16-code alphabet (code_tables) by
+    the lut, a torch op on seq_buf's device: the native scan's input on
+    the CPU and the plain versions'. The kernels apply the lut
+    themselves."""
+    return _tables(seq_buf.device)["lut"][seq_buf.long()]
+
+
+def gather_packed(buf, off, idx):
+    """(packed [sum of lengths], poff [n+1] int64): the sequences idx of
+    the table (buf, off) back to back and their offsets, the layout of
+    the native scan (and of the kernel before the table), by torch ops."""
+    start = off[idx.long()]
+    ln = off[idx.long() + 1] - start
+    poff = torch.zeros(len(idx) + 1, dtype=torch.int64, device=buf.device)
+    torch.cumsum(ln, 0, out=poff[1:])
+    pos = torch.repeat_interleave(start - poff[:-1], ln) \
+        + torch.arange(int(poff[-1]), device=buf.device)
+    return buf[pos], poff
+
+
+NATIVE_CHUNK = 1 << 16  # pairs a native call: bounds the gathered bytes
+
+
+def _native_scan(codes, seq_off, ai, bi, min_olen, min_score, out_len,
+                 out_score):
+    """The threaded native scan (cpp/overlapbest.cpp) on the pairs of a
+    CPU code table, gathered NATIVE_CHUNK pairs at a time."""
+    lib = _native_lib()
+    tab = _tables(codes.device)["native"]
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i16p = ctypes.POINTER(ctypes.c_int16)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    f64p = ctypes.POINTER(ctypes.c_double)
+
+    def p(t, typ):
+        return ctypes.cast(t.data_ptr(), typ)
+
+    for c0 in range(0, len(ai), NATIVE_CHUNK):
+        sl = slice(c0, c0 + NATIVE_CHUNK)
+        abuf, aoff = gather_packed(codes, seq_off, ai[sl])
+        bbuf, boff = gather_packed(codes, seq_off, bi[sl])
+        lib.overlap_best_batch(
+            p(abuf, u8p), p(aoff, i64p), p(bbuf, u8p), p(boff, i64p),
+            len(aoff) - 1, p(tab, i16p), int(min_olen), float(min_score),
+            p(out_len[sl], i64p), p(out_score[sl], f64p),
+            min(8, os.cpu_count() or 1),
+        )
+
+
+def split_by_length(la: torch.Tensor):
+    """(order [n] int32, n_short [1] int32) by torch ops on la's device,
+    with no wait on the host: order holds the pairs with la <= L_WARP
+    first, then the longer ones, each class in index order; n_short is
+    the size of the first class."""
+    n = la.numel()
+    long_ = la > L_WARP
+    c_long = torch.cumsum(long_, 0, dtype=torch.int32)  # longs up to k
+    n_short = n - c_long[-1:]
+    k = torch.arange(n, dtype=torch.int32, device=la.device)
+    pos = torch.where(long_, n_short + c_long - 1, k - c_long)
+    order = torch.empty(n, dtype=torch.int32, device=la.device)
+    order[pos.long()] = k
+    return order, n_short
+
+
+def _launch(fn, name, *args):
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def warp_scan(seq_buf, seq_off, ai, bi, order, n_short, min_olen,
+              min_score, out_len, out_score):
+    """overlap_warp_kernel on the pairs order[:n_short] (each la <=
+    L_WARP), writing out_len / out_score at their indices, on the current
+    stream. CUDA tensors only."""
+    from .._native import keelime_lib
+
+    dev = seq_buf.device
+    tabs = _tables(dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(keelime_lib().overlap_warp_launch, "overlap_warp",
+                seq_buf.data_ptr(), seq_off.data_ptr(), ai.data_ptr(),
+                bi.data_ptr(), order.data_ptr(), n_short.data_ptr(),
+                order.numel(), tabs["lut"].data_ptr(),
+                tabs["t2_i8"].data_ptr(), int(min_olen), float(min_score),
+                out_len.data_ptr(), out_score.data_ptr(),
+                ctypes.c_void_p(stream))
+
+
+def block_scan(seq_buf, seq_off, ai, bi, order, n_short, min_olen,
+               min_score, out_len, out_score):
+    """overlap_best_kernel on the pairs order[n_short:], writing out_len /
+    out_score at their indices, on the current stream. CUDA tensors
+    only."""
+    from .._native import keelime_lib
+
+    dev = seq_buf.device
+    tabs = _tables(dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(keelime_lib().overlap_best_launch, "overlap_best",
+                seq_buf.data_ptr(), seq_off.data_ptr(), ai.data_ptr(),
+                bi.data_ptr(), order.data_ptr(), n_short.data_ptr(),
+                order.numel(), tabs["lut"].data_ptr(), tabs["t2"].data_ptr(),
+                int(min_olen), float(min_score), out_len.data_ptr(),
+                out_score.data_ptr(), ctypes.c_void_p(stream))
+
+
+def scan_by_class(seq_buf, seq_off, ai, bi, min_olen, min_score,
+                  longest=None, scans=(warp_scan, block_scan)):
+    """(out_len [n] int64, out_score [n] f64): the pairs split by a's
+    length (split_by_length), scans[0] run on the short class and
+    scans[1] on the long one, each writing its pairs' results at their
+    indices. scans[1] is not run when `longest` (a bound on a's length
+    the caller knows on the host) is at most L_WARP."""
+    n = ai.numel()
+    dev = seq_buf.device
+    out_len = torch.empty(n, dtype=torch.int64, device=dev)
+    out_score = torch.empty(n, dtype=torch.float64, device=dev)
+    la = seq_off[ai.long() + 1] - seq_off[ai.long()]
+    order, n_short = split_by_length(la)
+    if longest is not None and longest <= L_WARP:
+        scans = scans[:1]
+    for scan in scans:
+        scan(seq_buf, seq_off, ai, bi, order, n_short, min_olen, min_score,
+             out_len, out_score)
+    return out_len, out_score
+
+
+def longest_of(seq_off: np.ndarray) -> int:
+    """The longest sequence of a table by its host offsets (0 if none):
+    overlap_best_indexed's `longest`."""
+    return int(np.diff(seq_off).max(initial=0))
+
+
+def overlap_best_indexed(seq_buf, seq_off, ai, bi, min_olen: int,
+                         min_score: float, longest=None):
+    """(len [n] int64, score [n] f64) on seq_buf's device: the reference
+    winner of each pair (sequence ai[i], sequence bi[i]) of the table
+    (seq_buf uint8, seq_off [S+1] int64; ai, bi int32 [n]). `longest`,
+    when given, bounds the length of every a (longest_of the table):
+    at most L_WARP, the block kernel is not launched.
+
+    CUDA tensors run overlap_warp_kernel and overlap_best_kernel on their
+    length classes, on the current stream, without waiting on the host;
+    a failed build or launch raises. CPU
+    tensors run the threaded native scan (cpp/overlapbest.cpp): this is
+    the port's one CPU route that is the native library and not the plain
+    torch version (plain_indexed), because the native scan is what
+    keelime runs on the host in production."""
+    dev = _check_indexed(seq_buf, seq_off, ai, bi)
+    n = ai.numel()
+    if n == 0:
+        return (torch.empty(0, dtype=torch.int64, device=dev),
+                torch.empty(0, dtype=torch.float64, device=dev))
+    if dev.type == "cpu":
+        out_len = torch.empty(n, dtype=torch.int64)
+        out_score = torch.empty(n, dtype=torch.float64)
+        _native_scan(seq_codes(seq_buf), seq_off.contiguous(), ai, bi,
+                     min_olen, min_score, out_len, out_score)
+        return out_len, out_score
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return scan_by_class(seq_buf.contiguous(), seq_off.contiguous(),
+                         ai.contiguous(), bi.contiguous(), min_olen,
+                         min_score, longest)
+
+
 def overlap_best_batch(pairs: Sequence[Tuple[str, str]], min_olen: int,
                        min_score: float, device) -> List[Tuple[int, float]]:
-    """Reference-exact (length, score) for every (a, b) pair: on a CUDA
-    device the pairs are packed once, uploaded and scanned by
-    overlap_best_kernel; on the CPU by the threaded native scan (the
-    JAX package's production route). Nothing falls back."""
+    """Reference-exact (length, score) for every (a, b) pair: the pairs'
+    strings interned into one table, then overlap_best_indexed on
+    `device`. Nothing falls back."""
     if not pairs:
         return []
+    ids: Dict[str, int] = {}
+    ai = np.fromiter((ids.setdefault(a, len(ids)) for a, _ in pairs),
+                     np.int32, len(pairs))
+    bi = np.fromiter((ids.setdefault(b, len(ids)) for _, b in pairs),
+                     np.int32, len(pairs))
     dev = torch.device(device)
-    packed = [torch.from_numpy(x).to(dev) for x in pack_pairs(pairs)]
-    out_len, out_score = overlap_best_packed(*packed, min_olen, min_score)
+    buf, off = intern(list(ids))
+    out_len, out_score = overlap_best_indexed(
+        *(torch.from_numpy(x).to(dev) for x in (buf, off, ai, bi)),
+        min_olen, min_score, longest_of(off))
     return list(zip(out_len.cpu().tolist(), out_score.cpu().tolist()))
 
 
@@ -222,15 +362,18 @@ def padded_chunks(pairs: Sequence[Tuple[str, str]], chunk: int, device):
             + (nb,)
 
 
-def overlap_scores_plain(A, B, la, lb, max_elems: int = 1 << 22):
+def overlap_scores_plain(A, B, la, lb, table=None, max_elems: int = 1 << 22):
     """The [N, La] score matrix of _overlap_scores_device in torch, f32:
     scores[n, s] = sum over j < min(lb, la - s) of TABLE[A[n, s+j],
-    B[n, j]]. Starts are taken in groups so that the gathered
-    [N, starts, Lb] block stays within max_elems elements."""
+    B[n, j]], TABLE the byte table keelime._COMBINED unless `table` (f32,
+    indexed by A's and B's values) is given. Starts are taken in groups
+    so that the gathered [N, starts, Lb] block stays within max_elems
+    elements."""
     N, La = A.shape
     Lb = B.shape[1]
     dev = A.device
-    table = torch.from_numpy(_COMBINED.astype(np.float32)).to(dev)
+    if table is None:
+        table = torch.from_numpy(_COMBINED.astype(np.float32)).to(dev)
     j = torch.arange(Lb, device=dev)
     valid_b = j[None, :] < lb[:, None]  # [N, Lb]
     ai, bi = A.long(), B.long()
@@ -265,6 +408,61 @@ def winner(S, la, lb, min_olen: int, min_score: float):
     has = best_len >= 0
     return (torch.where(has, best_len, 0),
             torch.where(has, sc, torch.zeros_like(sc)))
+
+
+def _padded_codes(codes, seq_off, idx):
+    """([N, L] the codes of the sequences idx, L = their longest length
+    bucketed to a multiple of 64, padded with the zero code; their
+    lengths [N] int64)."""
+    start = seq_off[idx.long()]
+    ln = seq_off[idx.long() + 1] - start
+    j = torch.arange(_bucket(int(ln.max())), device=codes.device)
+    padded = torch.nn.functional.pad(codes, (0, 1), value=OTHER)
+    mat = padded[(start[:, None] + j[None, :]).clamp(max=len(codes))]
+    return torch.where(j[None, :] < ln[:, None], mat, OTHER), ln
+
+
+def plain_indexed(codes, seq_off, ai, bi, min_olen: int, min_score: float,
+                  chunk: int = 4096):
+    """Plain PyTorch version of the scan on a code table (seq_codes'
+    output): (len [n] int64, score [n] f64) of the pairs (ai[i], bi[i]),
+    by JAX's score matrix (overlap_scores_plain over the 16-code table)
+    and winner rule, `chunk` pairs at a time, on codes' device."""
+    half = _tables(codes.device)["half"]
+    lens, scores = [], []
+    for c0 in range(0, len(ai), chunk):
+        A, la = _padded_codes(codes, seq_off, ai[c0 : c0 + chunk])
+        B, lb = _padded_codes(codes, seq_off, bi[c0 : c0 + chunk])
+        ln, sc = winner(overlap_scores_plain(A, B, la, lb, table=half), la,
+                        lb, min_olen, min_score)
+        lens.append(ln)
+        scores.append(sc)
+    if not lens:
+        return (torch.empty(0, dtype=torch.int64, device=codes.device),
+                torch.empty(0, dtype=torch.float64, device=codes.device))
+    return torch.cat(lens), torch.cat(scores)
+
+
+def _plain_class(seq_buf, seq_off, ai, bi, ks, min_olen, min_score,
+                 out_len, out_score):
+    ln, sc = plain_indexed(seq_codes(seq_buf), seq_off, ai[ks.long()],
+                           bi[ks.long()], min_olen, min_score)
+    out_len[ks.long()] = ln
+    out_score[ks.long()] = sc
+
+
+def plain_warp_scan(seq_buf, seq_off, ai, bi, order, n_short, min_olen,
+                    min_score, out_len, out_score):
+    """warp_scan's plain version: plain_indexed on order[:n_short]."""
+    _plain_class(seq_buf, seq_off, ai, bi, order[: int(n_short)], min_olen,
+                 min_score, out_len, out_score)
+
+
+def plain_block_scan(seq_buf, seq_off, ai, bi, order, n_short, min_olen,
+                     min_score, out_len, out_score):
+    """block_scan's plain version: plain_indexed on order[n_short:]."""
+    _plain_class(seq_buf, seq_off, ai, bi, order[int(n_short):], min_olen,
+                 min_score, out_len, out_score)
 
 
 def overlap_scores_batch(pairs: Sequence[Tuple[str, str]], min_olen: int,
