@@ -112,7 +112,11 @@ and prints no result):
    over its own pairs; each kernel timed beside its bound
    (overlap_bound_ms), and the whole call. Some
    merge pass must hold pairs for the block kernel (contigs longer than
-   L_WARP). Then `map --device cuda` and
+   L_WARP), and some its mitogenome-length contigs: on the call of those
+   with the most long pairs the block kernel (one thread-block cluster
+   of G CTAs a pair) runs at the cluster size it chooses and forced to
+   G = 1, 2, 4, 8 and 16, each bit-equal to plain_block_scan and timed
+   beside the bound. Then `map --device cuda` and
    `map --device cpu` on the same reads must write equal alignments, and
    `duprm` must run on the card's GAM. Phase 7 runs after phase 6 and
    before phase 5.
@@ -151,7 +155,9 @@ size the wrapper chooses, for overlap_warp_kernel at the find_overlaps
 batch of the keelime warm-up run and for overlap_best_kernel at the
 long pairs of the largest merge batch that has some (each alone on its
 class, with the library's grouped conv1d on the same pairs as
-library_ms).
+library_ms, and the cluster size it ran at; then the mitogenome-length
+call's long pairs, ms and bound at its chosen cluster size and ms at
+each forced size).
 Every timing line names the card and its power limit. The
 second-to-last lines are the nvidia-smi line and one JSON object
 describing the kernels; the last line is
@@ -239,6 +245,9 @@ KL_BP, KL_HAPS, KL_VARIANTS, KL_HAP, KL_READS, KL_READ_LEN = (
     16569, 4, 40, 1, 12000, 64)
 # an overlap cell is a table lookup and an integer add: 2 lane operations
 OVERLAP_OPS_PER_CELL = 2
+# a merge call's contigs count as mitogenome-length from this share of
+# the backbone on (the cluster-size sweep's call)
+MITO_FRACTION = 0.9
 # phase 8: the two ranks' time limit, and the chain split's steps (as
 # many as phase 6's kernel check runs)
 RANK_TIMEOUT_S = 300
@@ -1590,23 +1599,35 @@ def timed_once(run):
     return list(zip(ln, sc)), start.elapsed_time(end)
 
 
-def kernel_vs_plain(scan, plain, args, n):
+def kernel_vs_plain(scan, plain, args, n, hints):
     """(kernel's outputs, plain version's outputs, the plain version's
-    milliseconds): both written into outputs preset to (-7, -7.0), so the
-    pairs of the other class must stay untouched by both."""
+    milliseconds, what the kernel's wrapper returned): both written into
+    outputs preset to (-7, -7.0), so the pairs of the other class must
+    stay untouched by both; `hints` (n_long, longest) follow the
+    outputs."""
     import torch
 
-    outs = []
+    outs, ret = [], []
     for fn in (scan, plain):
         out = (torch.full((n,), -7, dtype=torch.int64, device=args[0].device),
                torch.full((n,), -7.0, dtype=torch.float64,
                           device=args[0].device))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn(*args, *out)
+        ret.append(fn(*args, *out, *hints))
         torch.cuda.synchronize()
         outs.append(out)
-    return outs[0], outs[1], (time.perf_counter() - t0) * 1e3
+    return outs[0], outs[1], (time.perf_counter() - t0) * 1e3, ret[0]
+
+
+def kernel_line(name, c):
+    """One kernel's part of an overlap call's log line."""
+    g = f" (clusters of {c['cluster']})" if "cluster" in c else ""
+    return (f"{name} kernel {c['pairs']} pairs{g} {c['ms']:.4f} ms "
+            f"({100 * c['bound_ms'] / c['ms']:.2f} % of "
+            f"{c['bound_ms']:.4f} ms), plain {c['plain_ms']:.2f} ms, "
+            f"conv1d {c['library_ms']:.2f} ms, max abs err "
+            f"{c['max_abs_err']}")
 
 
 def check_overlap_calls(dev, calls, smi):
@@ -1642,6 +1663,8 @@ def check_overlap_calls(dev, calls, smi):
         la_d = off[ai.long() + 1] - off[ai.long()]
         order, n_short = kd.split_by_length(la_d)
         scan_args = (buf, off, ai, bi, order, n_short, min_olen, min_score)
+        hints = (kd.count_long(host[1].numpy(), host[2].numpy()),
+                 kd.longest_of(host[1].numpy()))
         la, lb = (x.numpy() for x in (
             host[1][host[2].long() + 1] - host[1][host[2].long()],
             host[1][host[3].long() + 1] - host[1][host[3].long()]))
@@ -1661,14 +1684,15 @@ def check_overlap_calls(dev, calls, smi):
             if not ks.numel():
                 continue
             ks = ks.long()
-            mine, ref, plain_ms = kernel_vs_plain(scan, plain, scan_args, n)
+            mine, ref, plain_ms, ran = kernel_vs_plain(scan, plain,
+                                                       scan_args, n, hints)
             if not (torch.equal(mine[0], ref[0])
                     and torch.equal(mine[1], ref[1])):
                 raise AssertionError(f"overlap call {i}: {name} kernel vs "
                                      "plain")
             for w, r in zip(whole, ref):
                 w[ks] = r[ks]
-            ms = cuda_ms(lambda: scan(*scan_args, *mine), reps=5)
+            ms = cuda_ms(lambda: scan(*scan_args, *mine, *hints), reps=5)
             ks_h = ks.cpu().numpy()
             cells, nbytes = overlap_work(la[ks_h], lb[ks_h], won[ks_h],
                                          min_olen,
@@ -1689,6 +1713,8 @@ def check_overlap_calls(dev, calls, smi):
                                  max_abs_err=max(max_err(mine, ref, ks),
                                                  max_err(got, ref, ks),
                                                  max_err(got, nat, ks)))
+            if name == "block":  # block_scan returns its cluster size
+                classes[name]["cluster"] = ran
         for name, other in (("plain", whole), ("native", nat)):
             if not (torch.equal(got[0], other[0])
                     and torch.equal(got[1], other[1])):
@@ -1706,15 +1732,51 @@ def check_overlap_calls(dev, calls, smi):
         log(f"overlap call {i}: {n} pairs (longest a {row['max_len']} bp, "
             f"min_olen {min_olen}), {cells} cells: the call {call_ms:.4f} "
             f"ms ({100 * bms / call_ms:.2f} % of the {bms:.4f} ms bound, "
-            f"{by}-bound), native scan {native_ms:.2f} ms; " + "; ".join(
-                f"{k} kernel {c['pairs']} pairs {c['ms']:.4f} ms "
-                f"({100 * c['bound_ms'] / c['ms']:.2f} % of "
-                f"{c['bound_ms']:.4f} ms), plain {c['plain_ms']:.2f} ms, "
-                f"conv1d {c['library_ms']:.2f} ms, max abs err "
-                f"{c['max_abs_err']}"
-                for k, c in classes.items()) + "; every kernel equal to its "
-            f"plain version, the call to plain, native and conv1d; on {smi}")
+            f"{by}-bound), native scan {native_ms:.2f} ms; "
+            + "; ".join(kernel_line(k, c) for k, c in classes.items())
+            + "; every kernel equal to its plain version, the call to "
+            f"plain, native and conv1d; on {smi}")
     return rows
+
+
+def cluster_sweep(dev, call, row, smi):
+    """overlap_best_kernel on the long class of one merge call (the
+    16,569-bp call with the most pairs) at the cluster size it chooses
+    and forced to every size of CLUSTER_SIZES: each held bit-equal to
+    plain_block_scan on the card and timed alone (CUDA events, 5 calls)
+    beside the class's bound. Returns {"chosen": G, "ms": {G: ms}}."""
+    import torch
+
+    from vgan_tpu_torch.pipelines import keelime_device as kd
+
+    buf, off, ai, bi, min_olen, min_score = call[:6]
+    n = ai.numel()
+    order, n_short = kd.split_by_length(off[ai.long() + 1] - off[ai.long()])
+    args = (buf, off, ai, bi, order, n_short, min_olen, min_score)
+    hints = (kd.count_long(off.cpu().numpy(), ai.cpu().numpy()),
+             kd.longest_of(off.cpu().numpy()))
+    _, ref, _, chosen = kernel_vs_plain(kd.block_scan, kd.plain_block_scan,
+                                        args, n, hints)
+    ms = {}
+    for G in sorted(kd.CLUSTER_SIZES):
+        out = (torch.full((n,), -7, dtype=torch.int64, device=dev),
+               torch.full((n,), -7.0, dtype=torch.float64, device=dev))
+        kd.block_scan(*args, *out, *hints, cluster=G)
+        torch.cuda.synchronize()
+        if not (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])):
+            raise AssertionError(f"overlap_best_kernel at clusters of {G} "
+                                 "vs plain_block_scan")
+        ms[G] = cuda_ms(lambda G=G: kd.block_scan(*args, *out, *hints,
+                                                  cluster=G), reps=5)
+    bms = row["block"]["bound_ms"]
+    log(f"overlap_best_kernel on the {row['block']['pairs']} pairs of "
+        f"{row['block']['max_len']} bp at most: chosen clusters of {chosen} "
+        f"{ms[chosen]:.4f} ms; " + "; ".join(
+            f"G={G} {t:.4f} ms ({100 * bms / t:.2f} % of {bms:.4f} ms)"
+            for G, t in ms.items())
+        + f"; each equal to plain_block_scan; on {smi}")
+    return dict(chosen=chosen, ms=ms, bound_ms=bms,
+                pairs=row["block"]["pairs"])
 
 
 def keelime_outputs(prefix):
@@ -1812,6 +1874,15 @@ def phase_keelime(dev, out_dir, clock):
     log(f"keelime --device cpu: {cpu_s:.2f} s wall; stages "
         f"{json.dumps(cpu_st)}; the four outputs equal the card's")
     overlap = check_overlap_calls(dev, calls, smi)
+    # the mitogenome-length merge call with the most long pairs, at every
+    # cluster size
+    mito = [i for i, r in enumerate(overlap) if "block" in r
+            and r["block"]["max_len"] >= MITO_FRACTION * KL_BP]
+    if not mito:
+        raise AssertionError("no merge pass of the warm-up run had "
+                             "mitogenome-length contigs")
+    k = max(mito, key=lambda k: overlap[k]["block"]["pairs"])
+    sweep = cluster_sweep(dev, calls[k], overlap[k], smi)
 
     # map on the card and on the CPU, then duprm on the card's GAM
     recs = {}
@@ -1852,6 +1923,7 @@ def phase_keelime(dev, out_dir, clock):
                 find_overlaps=overlap[0],
                 largest_merge=max(merge, key=lambda r: r["pairs"]),
                 block_merge=max(long_merge, key=lambda r: r["block"]["pairs"]),
+                cluster_sweep=sweep,
                 map_card_s=recs[str(dev)][1], map_cpu_s=recs["cpu"][1],
                 duprm_kept=kept)
 
@@ -2072,6 +2144,7 @@ def main() -> int:
         keelime_cpu_run_s=kl["cpu_run_s"],
         keelime_cpu_stages_s=kl["cpu_stages_s"],
         keelime_overlap_calls=kl["overlap"],
+        keelime_cluster_sweep=kl["cluster_sweep"],
         keelime_map_card_s=kl["map_card_s"], keelime_map_cpu_s=kl["map_cpu_s"],
         keelime_duprm_kept=kl["duprm_kept"], multi=mp)))
     # launches: sw_scores from the mapper's object path, gather_score_hash
@@ -2086,6 +2159,7 @@ def main() -> int:
     t_sw, t_gsh, t_tree = k["sw"], k["gsh"]["pool"], sb["kernel"]["post"]
     t_warp = kl["find_overlaps"]["warp"]
     t_block = kl["block_merge"]["block"]
+    t_mito = kl["cluster_sweep"]
     log(f"smoke total {time.perf_counter() - START:.0f} s on {smi}")
     print(smi)
     print(json.dumps({"kernels": [{
@@ -2158,6 +2232,12 @@ def main() -> int:
         "bound_ms": t_block["bound_ms"],
         "bound_by": t_block["bound_by"],
         "library_ms": t_block["library_ms"],
+        "cluster": t_block["cluster"],
+        "mito_pairs": t_mito["pairs"],
+        "mito_cluster": t_mito["chosen"],
+        "mito_ms": t_mito["ms"][t_mito["chosen"]],
+        "mito_bound_ms": t_mito["bound_ms"],
+        "mito_ms_by_cluster": t_mito["ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -374,3 +374,105 @@ def overlap_trap_pairs():
         NEAR_MISS, ("TT" + core, core), (core + core, core),
         (core, core), ("GATTACA" * 5, "GATTACA" * 5),
     ]
+
+
+def overlap_scores2(a, b, lut, t2):
+    """The doubled overlap score of every start s of b along a (olen =
+    min(lb, la - s)), by brute force: lut and t2 are
+    keelime_device.code_tables()."""
+    ca = lut[np.frombuffer(a.encode("latin-1"), np.uint8)]
+    cb = lut[np.frombuffer(b.encode("latin-1"), np.uint8)]
+    out = np.zeros(len(a), dtype=np.int64)
+    for s in range(len(a)):
+        n = min(len(b), len(a) - s)
+        out[s] = t2[ca[s:s + n], cb[:n]].sum()
+    return out
+
+
+def long_overlap_cases(lut, t2):
+    """{name: (pairs, min_olen, min_score)}: overlap pairs whose a is
+    longer than L_WARP = 256 (overlap_best_kernel's class), at the edges
+    of its cluster decomposition (position chunks a CTA, rounds of
+    starts, the first qualifying start of a round): a of 257 bp, b longer
+    than a, a tail winner in the second round of 128 starts (and at the
+    last and the first start of a round), two qualifiers in one round
+    whose scores come from a late and from an early position chunk (in
+    both orders), a full block that misses min_score by 0.5 beside one
+    that makes it, no winner, a shorter than min_olen, bytes outside the
+    alphabet, and 16,569-bp pairs. lut and t2 are
+    keelime_device.code_tables(); every planted property is asserted on
+    brute-force scores."""
+    rng = np.random.default_rng(41)
+    acgt = np.array(list("ACGT"))
+
+    def rand(n, alpha=acgt):
+        return "".join(rng.choice(alpha, n))
+
+    def starts(a, b):
+        return overlap_scores2(a, b, lut, t2)
+
+    cases = {}
+    a = rand(257)
+    cases["a257"] = ([(a, a), (a, a[40:] + rand(100)), (a, rand(257)),
+                      (a, a[:200]), (a, rand(300))], 20, 30.0)
+    a = rand(400)
+    cases["lb_gt_la"] = ([(a, a[100:] + rand(600)), (a, rand(1000)),
+                          (a, a + rand(5))], 20, 30.0)
+    a = rand(1200)
+    pairs = [(a, a[s:] + rand(s)) for s in (200, 128, 129)]
+    for (x, y), s in zip(pairs, (200, 128, 129)):  # winner s, tail from 1
+        sc = starts(x, y)
+        assert sc[s] == 6 * (1200 - s) and (sc[1:s] < 4000).all()
+    cases["tail_round2"] = (pairs, 50, 2000.0)
+    # la = lb = 2000, the tail from s = 1: start s1 matches b over late
+    # positions only, start s2 over early ones; both qualify, s1 first
+    pairs = []
+    for s1, s2 in ((10, 20), (30, 37)):
+        a = rand(2000)
+        b = list(rand(2000))
+        late, early = (s1, s2) if s1 == 10 else (s2, s1)
+        for j in range(1500, 2000 - late):
+            b[j] = a[late + j]
+        for j in range(0, 500):
+            b[j] = a[early + j]
+        b = "".join(b)
+        sc = starts(a, b)
+        pairs.append((a, b, sc))
+    floor = min(min(sc[s1], sc[s2]) for (_, _, sc), (s1, s2)
+                in zip(pairs, ((10, 20), (30, 37))))
+    for (_, _, sc), (s1, s2) in zip(pairs, ((10, 20), (30, 37))):
+        assert (sc[:s1] < floor).all() and min(sc[s1], sc[s2]) >= floor
+    cases["early_late_chunks"] = ([(a, b) for a, b, _ in pairs], 100,
+                                  floor / 2)
+    a = rand(600)
+    miss, hit = (a, a[150:550]), (a, a[150:551])
+    assert starts(*miss)[:201].max() == 2 * 1200
+    assert starts(*hit)[:200].max() == 2 * 1203
+    cases["full_near_miss"] = ([miss, hit], 250, 1200.5)
+    pairs = [(rand(700), rand(650)), (rand(900), rand(300)),
+             (rand(500), rand(1200))]
+    for x, y in pairs:
+        assert starts(x, y)[:len(x) - 20 + 1].max() < 2 * 10.0
+    cases["no_winner"] = (pairs, 20, 10.0)
+    cases["la_lt_min_olen"] = ([(rand(300), rand(300)), (rand(280),
+                                                       rand(1000))], 301,
+                               1.0)
+    # ACGT with one byte in five from the whole alphabet and outside it
+    # (Python lists: numpy's str arrays drop "\x00")
+    alpha = KEELIME_ALPHABET + "xZ\x00\xff"
+
+    def mixed(n):
+        x = list(rand(n))
+        for k in np.flatnonzero(rng.random(n) < 0.2):
+            x[k] = alpha[int(rng.integers(len(alpha)))]
+        return "".join(x)
+
+    a = mixed(900)
+    pairs = [(a, a[300:] + mixed(200)), (a, mixed(700)), (mixed(400), a)]
+    sc = starts(*pairs[0])
+    assert (sc[:300] < sc[300]).all()
+    cases["outside_alphabet"] = (pairs, 10, float(sc[300]) / 2)
+    seq = rand(16569)
+    cases["mitogenome"] = ([(seq, seq), (seq[:16000], seq[150:]),
+                            (seq[:16400], seq[120:])], 40, 60.0)
+    return cases

@@ -739,6 +739,121 @@ def test_overlap_kernels_each_equal_plain_and_native(dev, case):
         assert (la_h <= kd.L_WARP).any() and (la_h > kd.L_WARP).any()
 
 
+def _as_pairs(out):
+    return list(zip(out[0].cpu().tolist(), out[1].cpu().tolist()))
+
+
+def _long_class(dev, pairs):
+    """(host tensors, card tensors, order, n_short) of a pair list's
+    table, split by a's length on the card."""
+    from vgan_tpu_torch.pipelines import keelime_device as kd
+
+    ids = {}
+    ai = np.array([ids.setdefault(a, len(ids)) for a, _ in pairs], np.int32)
+    bi = np.array([ids.setdefault(b, len(ids)) for _, b in pairs], np.int32)
+    host = [torch.from_numpy(x) for x in kd.intern(list(ids)) + (ai, bi)]
+    card = [t.to(dev) for t in host]
+    order, n_short = kd.split_by_length(card[1][card[2].long() + 1]
+                                        - card[1][card[2].long()])
+    return host, card, order, n_short
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
+def test_overlap_best_kernel_every_cluster_size(dev, G):
+    """overlap_best_kernel forced to clusters of G CTAs on
+    tests/_torch_world.py's long cases (a of 257 bp, b longer than a, tail
+    winners in the second round of starts, qualifiers scored in late and
+    early position chunks, a full block that just misses, no winner, la <
+    min_olen, bytes outside the alphabet, 16,569-bp pairs), all of them
+    in one call and each case alone: equal to plain_block_scan on the card
+    and to the native scan on the CPU, bit for bit."""
+    import _torch_world as world
+    from vgan_tpu_torch.pipelines import keelime_device as kd
+
+    cases = world.long_overlap_cases(*kd.code_tables())
+    for name, (pairs, min_olen, min_score) in cases.items():
+        host, card, order, n_short = _long_class(dev, pairs)
+        n = len(pairs)
+        assert int(n_short) == 0
+        outs = [(torch.full((n,), -7, dtype=torch.int64, device=dev),
+                 torch.full((n,), -7.0, dtype=torch.float64, device=dev))
+                for _ in range(2)]
+        kd.reset_launches()
+        assert kd.block_scan(*card, order, n_short, min_olen, min_score,
+                             *outs[0], n, kd.longest_of(host[1].numpy()),
+                             cluster=G) == G
+        kd.plain_block_scan(*card, order, n_short, min_olen, min_score,
+                            *outs[1])
+        torch.cuda.synchronize()
+        assert kd.LAUNCHES["overlap_best"] == 1
+        native = kd.overlap_best_indexed(*host, min_olen, min_score)
+        for k in (0, 1):
+            assert torch.equal(outs[0][k], outs[1][k]), name
+            assert torch.equal(outs[0][k].cpu(), native[k]), name
+
+
+def test_overlap_best_kernel_chosen_cluster_size(dev):
+    """The chooser on this card: every G it picks is a size the card
+    holds that many clusters of at once; on an H100 (132 SMs) the merge
+    calls' 4 and 12 mitogenome pairs get clusters of 16 and 8, the 80
+    long pairs of the largest merge batch plain blocks; the kernel at the
+    chosen G equals the native scan on the 16,569-bp case."""
+    import _torch_world as world
+    from vgan_tpu_torch.pipelines import keelime_device as kd
+
+    index = dev.index
+    n_sm = torch.cuda.get_device_properties(index).multi_processor_count
+    for n_long, longest in ((4, 16569), (12, 16569), (80, 2316),
+                            (20, 5222)):
+        G = kd.card_long_cluster_size(dev, n_long, longest)
+        assert G in kd.CLUSTER_SIZES
+        assert G == 1 or (n_long * G <= n_sm
+                          and kd._resident(index, G) >= n_long)
+    if n_sm == 132:
+        assert kd.card_long_cluster_size(dev, 4, 16569) == 16
+        assert kd.card_long_cluster_size(dev, 12, 16569) == 8
+        assert kd.card_long_cluster_size(dev, 80, 2316) == 1
+    pairs, min_olen, min_score = world.long_overlap_cases(
+        *kd.code_tables())["mitogenome"]
+    host, card, order, n_short = _long_class(dev, pairs)
+    out = (torch.empty(len(pairs), dtype=torch.int64, device=dev),
+           torch.empty(len(pairs), dtype=torch.float64, device=dev))
+    G = kd.block_scan(*card, order, n_short, min_olen, min_score, *out)
+    assert G == kd.card_long_cluster_size(dev, len(pairs), 16569)
+    native = kd.overlap_best_indexed(*host, min_olen, min_score)
+    assert torch.equal(out[0].cpu(), native[0])
+    assert torch.equal(out[1].cpu(), native[1])
+
+
+def test_overlap_best_kernel_refused_cluster_raises(dev):
+    """A cluster of 32 CTAs, past the card's largest: the launch (or the
+    residency query before it) raises, nothing is counted, the outputs
+    stay untouched, and no smaller cluster runs in its place; the refusal
+    leaves no error behind for the next launches of both kernels."""
+    import _torch_world as world
+    from vgan_tpu_torch.pipelines import keelime_device as kd
+
+    pairs, min_olen, min_score = world.long_overlap_cases(
+        *kd.code_tables())["a257"]
+    _, card, order, n_short = _long_class(dev, pairs)
+    out = (torch.full((len(pairs),), -7, dtype=torch.int64, device=dev),
+           torch.full((len(pairs),), -7.0, dtype=torch.float64, device=dev))
+    kd.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kd.block_scan(*card, order, n_short, min_olen, min_score, *out,
+                      cluster=32)
+    torch.cuda.synchronize()
+    assert kd.LAUNCHES["overlap_best"] == 0
+    assert (out[0] == -7).all() and (out[1] == -7.0).all()
+    kd.warp_scan(*card, order, n_short, min_olen, min_score, *out)
+    kd.block_scan(*card, order, n_short, min_olen, min_score, *out,
+                  cluster=2)
+    torch.cuda.synchronize()
+    assert kd.LAUNCHES == {"overlap_warp": 1, "overlap_best": 1}
+    assert _as_pairs(out) == kd.overlap_best_batch(pairs, min_olen,
+                                                   min_score, "cpu")
+
+
 def _keelime_world(tmp_path):
     import _torch_world as world
     from vgan_tpu_torch.graph import synth
@@ -768,10 +883,12 @@ def test_keelime_cli_on_card_equals_cpu(dev, tmp_path, monkeypatch):
     db, fq, d5, d3 = _keelime_world(tmp_path)
     indexed, longest = kd.overlap_best_indexed, []
 
-    def keeping(seq_buf, seq_off, ai, bi, min_olen, min_score, top):
+    def keeping(seq_buf, seq_off, ai, bi, min_olen, min_score, top,
+                *hints):
         if ai.numel():  # an empty call launches nothing
             longest.append(top)
-        return indexed(seq_buf, seq_off, ai, bi, min_olen, min_score, top)
+        return indexed(seq_buf, seq_off, ai, bi, min_olen, min_score, top,
+                       *hints)
 
     monkeypatch.setattr(kd, "overlap_best_indexed", keeping)
     outs = {}

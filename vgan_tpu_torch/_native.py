@@ -194,8 +194,13 @@ def _type_keelime(lib: ctypes.CDLL) -> None:
     lib.overlap_best_launch.argtypes = [
         vp, vp, vp, vp,            # seq, off [S + 1], ai, bi
         vp, vp, i64,               # order [n] int32, n_short [1] int32, n
-        vp, vp,                    # lut [256] uint8, table2 [16, 16] int32
+        vp, vp,                    # lut [256] uint8, pair table [65536] int8
         i64, f64,                  # min_olen, min_score
         vp, vp,                    # out_len, out_score
+        i32, i64,                  # cluster: CTAs a pair; clusters
         vp,                        # stream
+    ]
+    lib.overlap_best_max_active_clusters.restype = i32
+    lib.overlap_best_max_active_clusters.argtypes = [
+        i32, ctypes.POINTER(i32),  # cluster; out: clusters resident at once
     ]

@@ -1,6 +1,6 @@
 // keelime's batched suffix/prefix overlap scans for Hopper (sm_90a): every
 // pair read by index from one sequence table, short pairs a warp each,
-// long pairs a block each.
+// long pairs a thread-block cluster each.
 //
 // Replaces the XLA program vgan_tpu/pipelines/keelime_device.py::
 // _overlap_scores_device (:40-62) with its host winner rule (:107-124),
@@ -72,20 +72,59 @@
 //   ahead each left its time within a few per cent.
 //
 // overlap_best_kernel: the pairs with la > kLWarp (contig merges), one
-// 128-thread block a pair, grid-stride over them. A block walks its
-// starts in tiles of 128, a thread a start; a start tile runs over the
-// overlap in tiles of 256 positions staged in shared memory; the full
-// block reduces by a shared atomicMax, the tail by a shared atomicMin of
-// the qualifying starts, stopping after the first tile that holds one.
+// thread-block cluster of G CTAs a pair (G = 1, 2, 4, 8 or 16, chosen on
+// the host by keelime_device.long_cluster_size so that every pair's
+// cluster is resident at once; 16 is a non-portable size), the clusters
+// striding over the pairs. A merge call holds 4-80 such pairs, so one
+// block a pair left most SMs idle; the cluster splits each pair's work
+// over G SMs, in one of two shapes, chosen per pair (the same in every
+// CTA) by its estimated cost:
+// * The position split: the pair's span L = min(la, lb) cut into chunks
+//   of at least kMinChunk positions (fewer CTAs take part in a short
+//   pair), a multiple of 4 each; CTA r owns chunk r. Rounds of starts in
+//   best_one's order (the full-length block first, then the tail): in a
+//   round CTA r scores every start over its chunk, a's window and b's
+//   chunk staged in shared memory kTile positions at a time. A round is
+//   narrow (kNarrow starts, the CTA's threads in kGroups groups each
+//   taking a share of the chunk) or, where the chunk is short, wide
+//   (kThreads starts, a thread a start over the whole chunk). Every CTA
+//   leaves its int32 partial of each start in its own shared memory;
+//   after ONE cluster barrier every CTA adds the G partials of each start
+//   through distributed shared memory (map_shared_rank, kMaxCluster
+//   remote reads in flight) and takes the same decision: the full
+//   block's max over its rounds ((lb, max) once it is >= min_score after
+//   the last), in the tail the smallest qualifying start of the first
+//   round that has one. The partials are double-buffered by the rounds'
+//   parity, so the next round's writes never meet a slower CTA's reads,
+//   and a last cluster barrier keeps every CTA until no other can read
+//   its memory. The partials cover disjoint positions and |2T| <= 12, so
+//   they add up exactly, in any order, to best_one's sums. This is the
+//   shape of two long contigs of about the same length, whose winner lies
+//   in the first round or two.
+// * The start split, for a full-length block of many starts over a short
+//   b (a long contig against a short one: 15,000 starts of 776
+//   positions): CTA r takes the starts [r * s_per, (r + 1) * s_per), a
+//   thread a start over all of b (staged once where it fits a tile); the
+//   CTAs meet once, at the max.
+// Each thread scores four cells with two lookups of the 64 KB pair table
+// (lane_sum, as the warp kernel does; the table is built once on the
+// host side and copied in 16 bytes a load), with no barrier inside the
+// cell loop. What bounds it: the cells of the pair's scanned rounds over
+// G SMs at lane_sum's rate, plus per round the staging, the barriers and
+// the remote reads; a call's time is its heaviest pair's.
 //
 // The class split (keelime_device.split_by_length) is torch ops on the
 // card: `order` holds the short pairs first, then the long ones, each in
 // index order, and n_short[0] their boundary. Both kernels read n_short
-// on the card and write out[order[k]] themselves, so nothing waits on
-// the host.
+// on the card and write out[order[k]] themselves; only overlap_best_
+// kernel's wrapper reads the long pairs' count back (one wait, behind
+// the warp kernel) to choose G and size its grid.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -266,81 +305,221 @@ overlap_warp_kernel(const uint8_t* __restrict__ seq,
   }
 }
 
-// ---------------------------------------------------------------- block
-constexpr int kThreads = 128;  // starts a tile, threads a block
-constexpr int kTileJ = 256;    // overlap positions a tile
+// ---------------------------------------------------------------- cluster
+constexpr int kThreads = 512;  // threads a CTA of overlap_best_kernel
+constexpr int kNarrow = 128;   // starts a narrow round
+constexpr int kGroups = kThreads / kNarrow;  // position groups a narrow round
+constexpr int kTile = 2048;    // overlap positions a CTA stages at once
+constexpr int kMinChunk = 256;  // the fewest positions a CTA of a cluster takes
+constexpr int kMaxCluster = 16;  // remote reads kept in flight at once
+// Costs in cells a thread, by which a pair's scan picks its shape: a
+// round of the position split pays ~kRoundCost beside its cells (the
+// staging, the block barriers, one cluster barrier, the remote reads), a
+// round of the full block's start split ~kStageCost (its staging and two
+// block barriers).
+constexpr int kRoundCost = 512;
+constexpr int kStageCost = 256;
 
-struct Smem {
-  int t2[kCodes * kCodes];
+// A CTA's shared memory after its pair table.
+struct LongSmem {
   uint8_t lut[256];
-  uint8_t sa[kThreads + kTileJ];
-  uint8_t sb[kTileJ];
-  int best2;
-  long long first;
+  uint8_t sa[kThreads + kTile + 16];  // a's codes from s0 + jt
+  uint32_t sbw[kTile / 4 + 4];        // b's pair words from jt
+  int red[kGroups - 1][kNarrow];  // a narrow round: groups 1.. partials
+  int part[2][kThreads];    // the CTA's partials, by the round's parity
+  int wred[kThreads / 32];  // warp results
 };
+constexpr int kLongSmem = kPairTab + (int)sizeof(LongSmem);
 
-// The doubled score of start s0 + threadIdx.x over its first `olen`
-// positions (olen <= 0: nothing), for a start tile whose longest overlap is
-// `olen_max` (the same for the whole block). Every thread of the block
-// must call it: it stages tiles in shared memory between barriers.
-__device__ int tile_scores(Smem& sm, const uint8_t* a, long long la,
-                           const uint8_t* b, long long s0,
-                           long long olen_max, long long olen) {
-  const int tid = threadIdx.x;
-  int acc = 0;
-  for (long long j0 = 0; j0 < olen_max; j0 += kTileJ) {
-    __syncthreads();  // the previous tile's reads are done
-    for (int k = tid; k < kTileJ; k += kThreads) {
-      const long long j = j0 + k;
-      sm.sb[k] = j < olen_max ? sm.lut[b[j]] : 0;
+// Stages a's codes [g0, g0 + n) (the zero code from la on) into sm.sa and,
+// unless `a_only`, b's pair words for positions [jt, jt + tl) (the zero
+// code from L on) into sm.sbw. Every thread of the CTA calls it, between
+// barriers.
+__device__ __forceinline__ void stage(LongSmem& sm, const uint8_t* a,
+                                      int la, long long g0, int n,
+                                      const uint8_t* b, int L, int jt,
+                                      int tl, bool a_only) {
+  for (int p = threadIdx.x; p < n; p += kThreads) {
+    const long long g = g0 + p;
+    sm.sa[p] = g < la ? sm.lut[a[g]] : kZeroCode;
+  }
+  if (a_only) return;
+  for (int w = threadIdx.x; w <= (tl + 3) >> 2; w += kThreads) {
+    uint32_t c[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = jt + 4 * w + k;
+      c[k] = j < L ? sm.lut[b[j]] : kZeroCode;
     }
-    for (int k = tid; k < kThreads + kTileJ; k += kThreads) {
-      const long long p = s0 + j0 + k;
-      sm.sa[k] = p < la ? sm.lut[a[p]] : 0;
+    sm.sbw[w] = ((c[0] | c[1] << 4) << 8) | ((c[2] | c[3] << 4) << 24);
+  }
+}
+
+// The sum (or the max) over the cluster's G CTAs of their ints at `p`,
+// an address in this CTA's shared memory: kMaxCluster remote reads in
+// flight at once.
+template <bool kMax>
+__device__ __forceinline__ int cluster_reduce(cg::cluster_group& cluster,
+                                              int* p, int G) {
+  int acc = kMax ? INT_MIN : 0;
+  for (int r0 = 0; r0 < G; r0 += kMaxCluster) {
+    int v[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      v[r] = r0 + r < G ? *cluster.map_shared_rank(p, r0 + r)
+                        : (kMax ? INT_MIN : 0);
     }
-    __syncthreads();
-    const long long left = olen - j0;
-    const int jn = left < kTileJ ? (left > 0 ? (int)left : 0) : kTileJ;
-    for (int jj = 0; jj < jn; ++jj) {
-      acc += sm.t2[sm.sa[tid + jj] * kCodes + sm.sb[jj]];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      acc = kMax ? max(acc, v[r]) : acc + v[r];
     }
   }
   return acc;
 }
 
-// Pair i, the whole block; the results are written by one thread.
-__device__ void best_one_block(Smem& sm, const uint8_t* a, long long la,
-                               const uint8_t* b, long long lb,
-                               long long min_olen, double min_score,
-                               int64_t* out_len, double* out_score) {
-  const int tid = threadIdx.x;
-  if (la < min_olen || lb <= 0) {  // the same for the whole block
-    if (tid == 0) {
-      *out_len = 0;
-      *out_score = 0.0;
-    }
+// The max over the CTA of each thread's `v` (INT_MIN for none), for every
+// thread. Every thread of the CTA calls it.
+__device__ __forceinline__ int block_max(LongSmem& sm, int v) {
+  v = __reduce_max_sync(kFull, v);
+  __syncthreads();  // the previous reads of sm.wred are done
+  if ((threadIdx.x & 31) == 0) sm.wred[threadIdx.x >> 5] = v;
+  __syncthreads();
+  for (int w = 0; w < kThreads / 32; ++w) v = max(v, sm.wred[w]);
+  return v;
+}
+
+// One round of the position split: the CTA's doubled partial sums of the
+// starts s0 + t (t < S, S = kNarrow or kThreads) over its positions
+// [j0, e), a's window and b's positions staged a tile of kTile at a
+// time. A narrow round has kGroups groups of kNarrow threads, group q
+// taking its share of each tile; a wide round a thread a start over the
+// whole tile. Positions past la read a's zero code, past L = min(la, lb) b's.
+// Leaves the CTA's partial of start s0 + t in out[t]. Every thread of the
+// CTA calls it.
+__device__ void round_partials(LongSmem& sm, const int8_t* ptab,
+                               const uint8_t* a, int la, const uint8_t* b,
+                               int L, int s0, int j0, int e, int S,
+                               int* out) {
+  const int groups = kThreads / S;
+  const int q = threadIdx.x / S;
+  const int t = threadIdx.x % S;
+  int acc = 0;
+  for (int jt = j0; jt < e; jt += kTile) {
+    const int tl = min(kTile, e - jt);
+    __syncthreads();  // the previous tile's reads are done
+    stage(sm, a, la, (long long)s0 + jt, S + tl + 12, b, L, jt, tl, false);
+    __syncthreads();
+    // group q: the positions [q * sl, min((q + 1) * sl, tl)) of the tile
+    const int sl = ((tl + groups - 1) / groups + 3) & ~3;
+    const int lo = q * sl;
+    const int nq = min(sl, tl - lo);
+    if (nq > 0) acc += lane_sum(sm.sa + lo, sm.sbw + (lo >> 2), ptab, t, nq);
+  }
+  if (groups == 1) {
+    out[t] = acc;
     return;
   }
-  __syncthreads();  // the previous pair's reads of the two slots are done
-  if (tid == 0) {
-    sm.best2 = INT_MIN;
-    sm.first = LLONG_MAX;
+  if (q > 0) sm.red[q - 1][t] = acc;
+  __syncthreads();
+  if (q == 0) {
+#pragma unroll
+    for (int g = 0; g < kGroups - 1; ++g) acc += sm.red[g][t];
+    out[t] = acc;
   }
-  // (tile_scores starts with a barrier: the two reduction slots are set
-  // before any thread reads them)
+}
+
+// The full block's start split: the max of the doubled sums of the
+// starts [s_lo, s_hi) over all of b's lb positions, a thread a start,
+// kThreads starts a round, b staged once where it fits a tile. Returns
+// the thread's max (INT_MIN where it had no start). Every thread of the
+// CTA calls it.
+__device__ int full_block_starts(LongSmem& sm, const int8_t* ptab,
+                                 const uint8_t* a, int la, const uint8_t* b,
+                                 int lb, int s_lo, int s_hi) {
+  int m = INT_MIN;
+  for (int s0 = s_lo; s0 < s_hi; s0 += kThreads) {
+    int acc = 0;
+    for (int jt = 0; jt < lb; jt += kTile) {
+      const int tl = min(kTile, lb - jt);
+      __syncthreads();  // the previous tile's reads are done
+      stage(sm, a, la, (long long)s0 + jt, kThreads + tl + 12, b, lb, jt, tl,
+            s0 > s_lo && lb <= kTile);
+      __syncthreads();
+      acc += lane_sum(sm.sa, sm.sbw, ptab, threadIdx.x, tl);
+    }
+    if (s0 + (int)threadIdx.x < s_hi) m = max(m, acc);
+  }
+  return m;
+}
+
+// Pair (a, b), the whole cluster; rank 0 writes the result. la >=
+// min_olen and lb >= 1 (lb cut to la + 1 where b is longer). `par` is the
+// parity of the cluster's rounds so far (the same in all its CTAs): a
+// round's partials go to sm.part[par], so that the next round's writes
+// never meet a slower CTA's reads of this one. Every CTA reads all G
+// partials and takes the same decision, so one cluster barrier a round
+// suffices.
+__device__ void scan_long_pair(LongSmem& sm, const int8_t* ptab,
+                               cg::cluster_group& cluster, int G, int rank,
+                               const uint8_t* a, int la, const uint8_t* b,
+                               int lb, long long min_olen, double min_score,
+                               int64_t* out_len, double* out_score,
+                               int& par) {
+  const int tid = threadIdx.x;
+  const bool writer = rank == 0;
+  // this CTA's positions: chunks of at least kMinChunk, a multiple of 4
+  const int L = min(la, lb);
+  const int g_eff = max(1, min(G, L / kMinChunk));
+  const long long C = ((L + g_eff - 1) / g_eff + 3) & ~3;
+  const int j0 = (int)min(rank * C, (long long)L);
+  const int j1 = (int)min((rank + 1) * C, (long long)L);
+  // a round is wide (kThreads starts, a thread a start over the CTA's
+  // whole chunk) where its cells a thread stay under ~kGroups x
+  // kRoundCost, else narrow (kNarrow starts, kGroups groups splitting the
+  // chunk)
+  const int S = C < kGroups * kRoundCost ? kThreads : kNarrow;
 
   // full-length block: starts where the whole of b fits inside a
-  const long long n_full = la - lb + 1;
+  const int n_full = la - lb + 1;
   if (n_full > 0 && lb >= min_olen) {
-    for (long long s0 = 0; s0 < n_full; s0 += kThreads) {
-      const bool active = s0 + tid < n_full;
-      const int acc = tile_scores(sm, a, la, b, s0, lb, active ? lb : 0);
-      if (active) atomicMax(&sm.best2, acc);
-    }
-    __syncthreads();
-    const double best = static_cast<double>(sm.best2) * 0.5;
-    if (best >= min_score) {  // the same for the whole block
+    int best2;
+    const int s_per = (n_full + G - 1) / G;
+    if ((long long)((s_per + kThreads - 1) / kThreads) * (kStageCost + lb)
+        < (long long)((n_full + S - 1) / S)
+              * (kRoundCost + (S == kNarrow ? (int)C / kGroups : (int)C))) {
+      // the start split (a long contig against a short one): CTA r takes
+      // starts [r * s_per, (r + 1) * s_per) over all of b, no barrier
+      // between the CTAs until their maxima
+      const int lo = min(n_full, rank * s_per);
+      const int m = block_max(sm, full_block_starts(
+                                      sm, ptab, a, la, b, lb, lo,
+                                      min(n_full, lo + s_per)));
+      if (tid == 0) sm.part[par][0] = m;
+      cluster.sync();  // every CTA's max is in
+      // (block_max's reads of sm.wred ended before the cluster barrier)
       if (tid == 0) {
+        sm.wred[0] = cluster_reduce<true>(cluster, sm.part[par], G);
+      }
+      __syncthreads();
+      best2 = sm.wred[0];
+      par ^= 1;
+    } else {  // the position split: CTA r sums its chunk of every start
+      best2 = INT_MIN;
+      for (int s0 = 0; s0 < n_full; s0 += S) {
+        round_partials(sm, ptab, a, la, b, L, s0, j0, min(j1, lb), S,
+                       sm.part[par]);
+        cluster.sync();  // every CTA's partials are in
+        const int tot = tid < S ? cluster_reduce<false>(
+                                      cluster, sm.part[par] + tid, G)
+                                : 0;
+        best2 = max(best2, block_max(sm, tid < S && s0 + tid < n_full
+                                             ? tot : INT_MIN));
+        par ^= 1;
+      }
+    }
+    const double best = static_cast<double>(best2) * 0.5;
+    if (best >= min_score) {  // the same in every CTA
+      if (writer && tid == 0) {
         *out_len = lb;
         *out_score = best;
       }
@@ -349,35 +528,36 @@ __device__ void best_one_block(Smem& sm, const uint8_t* a, long long la,
   }
 
   // tail block: olen = la - s < lb; the first qualifying start wins
-  const long long t0 = n_full > 0 ? n_full : 0;
-  const long long hi = la - min_olen + 1;
-  for (long long s0 = t0; s0 < hi; s0 += kThreads) {
-    const long long s = s0 + tid;
-    const bool active = s < hi;
-    const long long olen = la - s;
-    const int acc = tile_scores(sm, a, la, b, s0, la - s0,
-                                active ? olen : 0);
-    const double sc = static_cast<double>(acc) * 0.5;
-    if (active && sc >= min_score && olen >= min_olen) {
-      atomicMin(&sm.first, s);
-    }
-    __syncthreads();
-    const long long first = sm.first;
-    if (first != LLONG_MAX) {  // the same for the whole block
-      if (s == first) {
-        *out_len = olen;
-        *out_score = sc;
+  const int t0 = n_full > 0 ? n_full : 0;
+  const int hi = la - (int)min_olen + 1;
+  for (int s0 = t0; s0 < hi; s0 += S) {
+    round_partials(sm, ptab, a, la, b, L, s0, j0, min(j1, la - s0), S,
+                   sm.part[par]);
+    cluster.sync();
+    const int tot = tid < S ? cluster_reduce<false>(
+                                  cluster, sm.part[par] + tid, G)
+                            : 0;
+    par ^= 1;
+    const bool ok = tid < S && s0 + tid < hi
+                    && static_cast<double>(tot) * 0.5 >= min_score;
+    // the first qualifying start of the round: kThreads - the max of
+    // kThreads - t over the qualifying t (0: none)
+    const int first = kThreads - block_max(sm, ok ? kThreads - tid : 0);
+    if (first < kThreads) {  // the same in every CTA
+      if (writer && tid == first) {
+        *out_len = la - (s0 + tid);
+        *out_score = static_cast<double>(tot) * 0.5;
       }
       return;
     }
   }
-  if (tid == 0) {
+  if (writer && tid == 0) {
     *out_len = 0;
     *out_score = 0.0;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
 overlap_best_kernel(const uint8_t* __restrict__ seq,
                     const int64_t* __restrict__ off,
                     const int32_t* __restrict__ ai,
@@ -385,23 +565,46 @@ overlap_best_kernel(const uint8_t* __restrict__ seq,
                     const int32_t* __restrict__ order,
                     const int32_t* __restrict__ n_short, int n,
                     const uint8_t* __restrict__ lut,
-                    const int* __restrict__ table2, long long min_olen,
-                    double min_score, int64_t* __restrict__ out_len,
+                    const int8_t* __restrict__ pair_table,
+                    long long min_olen, double min_score,
+                    int64_t* __restrict__ out_len,
                     double* __restrict__ out_score) {
-  __shared__ Smem sm;
-  for (int k = threadIdx.x; k < kCodes * kCodes; k += kThreads) {
-    sm.t2[k] = table2[k];
-    sm.lut[k] = lut[k];
+  extern __shared__ __align__(16) uint8_t smem[];
+  int8_t* ptab = reinterpret_cast<int8_t*>(smem);
+  LongSmem& sm = *reinterpret_cast<LongSmem*>(smem + kPairTab);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  // the pair table (built once on the host side), 16 bytes a load
+  const uint4* src = reinterpret_cast<const uint4*>(pair_table);
+  uint4* dst = reinterpret_cast<uint4*>(smem);
+  for (int k = threadIdx.x; k < kPairTab / 16; k += kThreads) {
+    dst[k] = src[k];
   }
-  // (best_one_block barriers before the tables are read)
-  for (int k = *n_short + blockIdx.x; k < n; k += gridDim.x) {
+  for (int k = threadIdx.x; k < 256; k += kThreads) sm.lut[k] = lut[k];
+  // (the first staging barrier orders these before any read)
+  int par = 0;
+  const int n_clusters = gridDim.x / G;
+  for (int k = *n_short + (int)blockIdx.x / G; k < n; k += n_clusters) {
     const int i = order[k];
     const int64_t oa = off[ai[i]];
     const int64_t ob = off[bi[i]];
-    best_one_block(sm, seq + oa, off[ai[i] + 1] - oa, seq + ob,
-                   off[bi[i] + 1] - ob, min_olen, min_score, out_len + i,
-                   out_score + i);
+    const int64_t la = off[ai[i] + 1] - oa;
+    const int64_t lb = off[bi[i] + 1] - ob;
+    if (la < min_olen || lb <= 0) {  // the same for the whole cluster
+      if (rank == 0 && threadIdx.x == 0) {
+        out_len[i] = 0;
+        out_score[i] = 0.0;
+      }
+      continue;
+    }
+    // no overlap reaches past b[la - 1]: la + 1 stands for any longer b
+    scan_long_pair(sm, ptab, cluster, G, rank, seq + oa, (int)la, seq + ob,
+                   lb > la ? (int)la + 1 : (int)lb, min_olen, min_score,
+                   out_len + i, out_score + i, par);
   }
+  // no CTA leaves while another may still read its partials
+  cluster.sync();
 }
 
 int sm_count() {
@@ -439,6 +642,41 @@ int warp_blocks_per_sm() {
   return n;
 }
 
+// The kernel's attributes (the dynamic shared memory, clusters over 8
+// allowed) set once a device, and its launch configuration: `clusters`
+// clusters of G CTAs.
+cudaError_t configure_long(int G, long long clusters, cudaStream_t stream,
+                           cudaLaunchAttribute* attr,
+                           cudaLaunchConfig_t* cfg) {
+  static bool done[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        overlap_best_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kLongSmem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(overlap_best_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = G;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)(clusters * G));
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = kLongSmem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -470,24 +708,57 @@ int overlap_warp_launch(const uint8_t* seq, const int64_t* off,
   return (int)cudaGetLastError();
 }
 
-// The pairs order[n_short[0]:n] of the same layout, a 128-thread block
-// each, on `stream`; lut as above; table2: [16, 16] int32, the doubled
-// table. Returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a batch the grid cannot hold.
+// The pairs order[n_short[0]:n] of the same layout (each with la >
+// kLWarp, every sequence shorter than 2^31 bytes), one cluster of
+// `cluster` CTAs a pair, `clusters` clusters striding over them, on
+// `stream`; lut as above; pair_table: [65536] int8, the pair table of
+// overlap_warp_kernel's prologue (16-byte aligned). Returns 0 when
+// launched, or the error: cudaErrorInvalidValue for a batch or grid it
+// cannot hold, else what the card says (a cluster size or shared memory
+// it refuses included); nothing falls back to a smaller cluster.
 int overlap_best_launch(const uint8_t* seq, const int64_t* off,
                         const int32_t* ai, const int32_t* bi,
                         const int32_t* order, const int32_t* n_short,
-                        int64_t n, const uint8_t* lut, const int* table2,
-                        int64_t min_olen, double min_score, int64_t* out_len,
-                        double* out_score, void* stream) {
+                        int64_t n, const uint8_t* lut,
+                        const int8_t* pair_table, int64_t min_olen,
+                        double min_score, int64_t* out_len,
+                        double* out_score, int cluster, int64_t clusters,
+                        void* stream) {
   if (n <= 0) return 0;
-  if (n > INT_MAX) return (int)cudaErrorInvalidValue;
-  const long long most = 16LL * sm_count();
-  overlap_best_kernel<<<(int)(n < most ? n : most), kThreads, 0,
-                        (cudaStream_t)stream>>>(
-      seq, off, ai, bi, order, n_short, (int)n, lut, table2,
-      (long long)min_olen, min_score, out_len, out_score);
-  return (int)cudaGetLastError();
+  if (n > INT_MAX || cluster < 1 || clusters < 1
+      || clusters * cluster > INT_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = configure_long(cluster, clusters, (cudaStream_t)stream,
+                                   &attr, &cfg);
+  if (err == cudaSuccess) {
+    err = cudaLaunchKernelEx(&cfg, overlap_best_kernel, seq, off, ai, bi,
+                             order, n_short, (int)n, lut, pair_table,
+                             (long long)min_olen, min_score, out_len,
+                             out_score);
+  }
+  // read (and so clear) the error state: a refused launch must not be
+  // reported again by the next launch's check
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+// How many clusters of `cluster` CTAs of overlap_best_kernel the current
+// device holds at once, into *out (cudaOccupancyMaxActiveClusters).
+// Returns 0 or the CUDA error.
+int overlap_best_max_active_clusters(int cluster, int* out) {
+  if (cluster < 1) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = configure_long(cluster, 1, 0, &attr, &cfg);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveClusters(
+        out, (const void*)overlap_best_kernel, &cfg);
+  }
+  cudaGetLastError();  // a refused size leaves no error for the next launch
+  return (int)err;
 }
 
 }  // extern "C"

@@ -1,26 +1,22 @@
 """Times this checkout's overlap scans (csrc/keelime.cu) against another
 build, for example a parent commit's keelime.cu unpacked with
-`git archive`, on chip_smoke.py's keelime batches: the find_overlaps
-batch and the largest merge batch, taken from a short `keelime --device
-cuda` run on chip_smoke.py's keelime world.
+`git archive`, on chip_smoke.py's keelime world: every
+overlap_best_indexed call of a short `keelime --device cuda` run.
 
     python -m vgan_tpu_torch.overlap_ab OTHER_KEELIME_CU
         [--e2e OTHER_CHECKOUT]
 
-The other source may have this checkout's C interface (a sequence table
-and index arrays) or the one before it (pairs packed back to back as
-bytes, one 128-thread block a pair), which gets each batch gathered from
-the table into that layout on the card first. Both libraries are built at
-once. Each batch goes once through both (the results must be equal), then
-each is timed with CUDA events over 5 calls in the order this, other,
-other, this: this checkout's whole call (the split and the kernels it
-launches) beside the other's kernel, then this checkout's warp and block
-kernels alone on their classes. Last, the
-host side of find_overlaps' call, wall clock to results on the host:
-before (a list of string pairs, packed into bytes, uploaded, the other's
-kernel, the results turned into a list and back into arrays) and after
-(the interned table and the index arrays uploaded, this checkout's call,
-the results downloaded as arrays). With --e2e, keelime end to end on
+The other source may have this checkout's C interface (the long class
+launched as clusters of G CTAs, a pair table) or the one before it (one
+128-thread block a long pair, the [16, 16] int32 doubled table, no G),
+which is launched through its own entry points on the same split. Both
+libraries are built at once. Each call goes once through both (the
+results must be equal); then, in the order this, other, other, this and
+with CUDA events over 5 calls each: the whole call (the split and the
+kernels it launches) on find_overlaps' batch, the largest merge batch
+and every merge call with long pairs; and the block kernel alone on the
+long class of each of those merge calls (this checkout's at the cluster
+size it chooses, printed beside it). With --e2e, keelime end to end on
 the same world from this checkout and from another (for example the
 parent commit unpacked with `git archive`): a fresh `python -m
 vgan_tpu_torch.cli keelime --device cuda --profile` process a run, one
@@ -40,7 +36,6 @@ import subprocess
 import sys
 import tempfile
 import threading
-import time
 
 from . import _native
 
@@ -48,9 +43,9 @@ REPO = os.path.dirname(_native._PKG_DIR)
 
 
 def _load_other(path):
-    """(library, "indexed" or "packed"): the keelime.cu at `path` built as
-    a second library (its own name in _build/), typed as this checkout's
-    or as the packed-pair interface before it."""
+    """(library, "cluster" or "block"): the keelime.cu at `path` built as a
+    second library (its own name in _build/), typed as this checkout's
+    interface or as the one-block-a-pair interface before it."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     nvcc = _native._find_tool("nvcc",
                               [os.path.join(cuda_home, "bin", "nvcc")])
@@ -59,25 +54,28 @@ def _load_other(path):
     lib = ctypes.CDLL(_native._build("vgan_keelime_other", nvcc,
                                      _native.NVCC_FLAGS, [path], []))
     ours.join()
-    if hasattr(lib, "overlap_warp_launch"):
+    if hasattr(lib, "overlap_best_max_active_clusters"):
         _native._type_keelime(lib)
-        return lib, "indexed"
-    vp, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-    lib.overlap_best_launch.restype = ctypes.c_int
-    lib.overlap_best_launch.argtypes = [
-        vp, vp, vp, vp, i64,       # abuf, aoff, bbuf, boff, n
-        vp, vp,                    # lut [256] uint8, table2 [16, 16] int32
-        i64, f64,                  # min_olen, min_score
-        vp, vp,                    # out_len, out_score
-        vp,                        # stream
-    ]
-    return lib, "packed"
+        return lib, "cluster"
+    vp, i32, i64, f64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                         ctypes.c_double)
+    for fn in (lib.overlap_warp_launch, lib.overlap_best_launch):
+        fn.restype = i32
+        fn.argtypes = [
+            vp, vp, vp, vp,        # seq, off [S + 1], ai, bi
+            vp, vp, i64,           # order [n] int32, n_short [1] int32, n
+            vp, vp,                # lut [256] uint8, table2 [16, 16]
+            i64, f64,              # min_olen, min_score
+            vp, vp,                # out_len, out_score
+            vp,                    # stream
+        ]
+    return lib, "block"
 
 
 def keelime_calls(dev, out_dir):
     """Every overlap_best_indexed call of a keelime run on chip_smoke.py's
     keelime world: [(seq_buf, seq_off, ai, bi, min_olen, min_score,
-    longest)]."""
+    longest, n_long)]."""
     import chip_smoke as cs
     from .cli import main as cli_main
     from .pipelines import keelime_device as kd
@@ -101,111 +99,81 @@ def keelime_calls(dev, out_dir):
     return calls
 
 
-def packed_run(lib, call):
-    """The packed-pair library on one call: returns run() that scans the
-    pairs gathered from the table into that layout (bytes, on the card)
-    and gives (out_len, out_score)."""
+def host_hints(call):
+    """(n_long, longest) of a call, from its table and indices on the
+    host: block_scan's hints."""
+    from .pipelines import keelime_device as kd
+
+    off, ai = (t.cpu().numpy() for t in (call[1], call[2]))
+    return kd.count_long(off, ai), kd.longest_of(off)
+
+
+def other_runs(lib, kind, call):
+    """(the whole call, the block kernel alone on the long class) of the
+    other library on one call, each a function giving (out_len,
+    out_score)."""
     import torch
 
     from .pipelines import keelime_device as kd
 
     seq_buf, seq_off, ai, bi, min_olen, min_score = call[:6]
     dev = seq_buf.device
-    abuf, aoff = kd.gather_packed(seq_buf, seq_off, ai)
-    bbuf, boff = kd.gather_packed(seq_buf, seq_off, bi)
+    ours = _native.keelime_lib()
+
+    def swapped(fn):
+        def run(*args, **kw):
+            _native._loaded["keelime"] = lib
+            try:
+                return fn(*args, **kw)
+            finally:
+                _native._loaded["keelime"] = ours
+        return run
+
+    order, n_short = kd.split_by_length(
+        seq_off[ai.long() + 1] - seq_off[ai.long()])
+    n = ai.numel()
+    hints = host_hints(call)
+
+    def outs():
+        return (torch.empty(n, dtype=torch.int64, device=dev),
+                torch.empty(n, dtype=torch.float64, device=dev))
+
+    if kind == "cluster":
+        def alone():
+            out = outs()
+            swapped(kd.block_scan)(seq_buf, seq_off, ai, bi, order, n_short,
+                                   min_olen, min_score, *out, *hints)
+            return out
+        return lambda: swapped(kd.overlap_best_indexed)(*call), alone
+
     lut, t2 = (torch.from_numpy(x.reshape(-1)).to(dev)
                for x in kd.code_tables())
-    n = ai.numel()
+    t2_i8 = t2.to(torch.int8)
 
-    def run():
-        out = (torch.empty(n, dtype=torch.int64, device=dev),
-               torch.empty(n, dtype=torch.float64, device=dev))
-        rc = lib.overlap_best_launch(
-            abuf.data_ptr(), aoff.data_ptr(), bbuf.data_ptr(),
-            boff.data_ptr(), n, lut.data_ptr(), t2.data_ptr(), int(min_olen),
-            float(min_score), out[0].data_ptr(), out[1].data_ptr(),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    def launch(fn, table, order, n_short, out):
+        rc = fn(seq_buf.data_ptr(), seq_off.data_ptr(), ai.data_ptr(),
+                bi.data_ptr(), order.data_ptr(), n_short.data_ptr(), n,
+                lut.data_ptr(), table.data_ptr(), int(min_olen),
+                float(min_score), out[0].data_ptr(), out[1].data_ptr(),
+                ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
         if rc != 0:
-            raise RuntimeError(f"other overlap_best launch: CUDA error {rc}")
+            raise RuntimeError(f"other library's launch: CUDA error {rc}")
+
+    def whole():
+        out = outs()
+        o, ns = kd.split_by_length(seq_off[ai.long() + 1]
+                                   - seq_off[ai.long()])
+        launch(lib.overlap_warp_launch, t2_i8, o, ns, out)
+        if call[6] is None or call[6] > kd.L_WARP:
+            launch(lib.overlap_best_launch, t2, o, ns, out)
         return out
 
-    return run
+    def alone():
+        out = outs()
+        launch(lib.overlap_best_launch, t2, order, n_short, out)
+        return out
 
-
-def host_side(lib, kind, call, smi):
-    """find_overlaps' call, host to host: the packed-pair steps (string
-    pairs, packed, uploaded, the other's kernel, unpacked) against this
-    checkout's (table and indices uploaded, the call, arrays
-    downloaded). Seconds of each, twice, in the order before, after,
-    after, before."""
-    import numpy as np
-    import torch
-
-    from .pipelines import keelime_device as kd
-    from .pipelines.keelime import _enc
-
-    seq_buf, seq_off, ai, bi, min_olen, min_score = call[:6]
-    dev = seq_buf.device
-    buf = seq_buf.cpu().numpy()
-    off = seq_off.cpu().numpy()
-    contents = [buf[off[k]:off[k + 1]].tobytes().decode("latin-1")
-                for k in range(len(off) - 1)]
-    C = len(contents)
-    keys = ai.cpu().numpy().astype(np.int64) * C + bi.cpu().numpy()
-    lut, t2 = (torch.from_numpy(x.reshape(-1)).to(dev)
-               for x in kd.code_tables())
-
-    def before():
-        order = [(contents[int(k) // C], contents[int(k) % C]) for k in keys]
-        n = len(order)
-        aoff = np.zeros(n + 1, dtype=np.int64)
-        boff = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum([len(a) for a, _ in order], out=aoff[1:])
-        np.cumsum([len(b) for _, b in order], out=boff[1:])
-        abuf = _enc("".join(a for a, _ in order)).copy()
-        bbuf = _enc("".join(b for _, b in order)).copy()
-        packed = [torch.from_numpy(x).to(dev) for x in (abuf, aoff, bbuf,
-                                                         boff)]
-        out = (torch.empty(n, dtype=torch.int64, device=dev),
-               torch.empty(n, dtype=torch.float64, device=dev))
-        rc = lib.overlap_best_launch(
-            *(t.data_ptr() for t in packed[:2]),
-            *(t.data_ptr() for t in packed[2:]), n, lut.data_ptr(),
-            t2.data_ptr(), int(min_olen), float(min_score),
-            out[0].data_ptr(), out[1].data_ptr(),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-        if rc != 0:
-            raise RuntimeError(f"other overlap_best launch: CUDA error {rc}")
-        res = list(zip(out[0].cpu().tolist(), out[1].cpu().tolist()))
-        return (np.fromiter((r[0] for r in res), np.int64, n),
-                np.fromiter((r[1] for r in res), np.float64, n))
-
-    def after():
-        table = kd.intern(contents)
-        return tuple(t.cpu().numpy() for t in kd.overlap_best_indexed(
-            *(torch.from_numpy(x).to(dev) for x in table),
-            torch.from_numpy((keys // C).astype(np.int32)).to(dev),
-            torch.from_numpy((keys % C).astype(np.int32)).to(dev),
-            min_olen, min_score, kd.longest_of(table[1])))
-
-    if kind != "packed":
-        print("host side: the other library is not the packed-pair "
-              "interface; skipped", flush=True)
-        return
-    got = {}
-    secs = {"before": [], "after": []}
-    for name in ("before", "after", "after", "before"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got[name] = (before if name == "before" else after)()
-        secs[name].append(time.perf_counter() - t0)
-    if not all(np.array_equal(x, y) for x, y in zip(got["before"],
-                                                    got["after"])):
-        raise AssertionError("host side: before and after differ")
-    print(f"find_overlaps call host to host ({len(keys)} pairs of {C} "
-          f"contents): " + "; ".join(
-              f"{n} " + " / ".join(f"{t:.4f}" for t in ts) + " s"
-              for n, ts in secs.items()) + f"; on {smi}", flush=True)
+    return whole, alone
 
 
 STAGES = ("map", "analyse", "assemble", "consensus")
@@ -274,60 +242,54 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     other, kind = _load_other(os.path.abspath(args[0]))
-    ours = _native.keelime_lib()
     print(f"this: {_native.KEELIME_SRC} (L_WARP {kd.L_WARP}); other: "
           f"{args[0]} ({kind}); on {smi}", flush=True)
     with tempfile.TemporaryDirectory(prefix="vgan_overlap_ab_") as tmp:
         calls = keelime_calls(dev, tmp)
     merge = calls[1:] or calls[:1]
-    batches = (("find_overlaps", calls[0]),
-               ("largest merge", max(merge, key=lambda c: c[2].numel())))
+    largest = max(merge, key=lambda c: c[2].numel())
+    labelled = [("find_overlaps", calls[0])] + [
+        ("largest merge" if c is largest else f"merge call {i}", c)
+        for i, c in enumerate(calls[1:], 1)]
 
-    def run_other(call):
-        if kind == "packed":
-            return packed_run(other, call)
+    def equal(x, y):
+        return torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
 
-        def run():
-            _native._loaded["keelime"] = other
-            try:
-                return kd.overlap_best_indexed(*call)
-            finally:
-                _native._loaded["keelime"] = ours
-        return run
-
-    for label, call in batches:
+    for label, call in labelled:
         buf, off, ai, bi, mo, ms = call[:6]
         la = (off[ai.long() + 1] - off[ai.long()]).cpu()
-        desc = (f"{label} batch: {ai.numel()} pairs, la {int(la.min())}-"
-                f"{int(la.max())} bp, {int((la > kd.L_WARP).sum())} over "
-                f"L_WARP")
-        other_run = run_other(call)
-        a, b = kd.overlap_best_indexed(*call), other_run()
-        torch.cuda.synchronize()
-        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+        n_long = int((la > kd.L_WARP).sum())
+        desc = (f"{label}: {ai.numel()} pairs, la {int(la.min())}-"
+                f"{int(la.max())} bp, {n_long} over L_WARP")
+        whole, alone = other_runs(other, kind, call)
+        if not equal(kd.overlap_best_indexed(*call), whole()):
             raise AssertionError(f"{label}: this and other differ")
-        times = {"this": [], "other": []}
-        for name in ("this", "other", "other", "this"):
-            fn = ((lambda: kd.overlap_best_indexed(*call)) if name == "this"
-                  else other_run)
-            times[name].append(cs.cuda_ms(fn, reps=5))
-        print(f"{desc}: equal; " + "; ".join(
-            f"{n} " + " / ".join(f"{t:.4f}" for t in ts) + " ms a call"
-            for n, ts in times.items()) + f"; on {smi}", flush=True)
-        order, n_short = kd.split_by_length(
-            off[ai.long() + 1] - off[ai.long()])
-        outs = [torch.empty(ai.numel(), dtype=t, device=dev)
-                for t in (torch.int64, torch.float64)]
-        alone = {}
-        for name, scan in (("warp kernel", kd.warp_scan),
-                           ("block kernel", kd.block_scan)):
-            alone[name] = cs.cuda_ms(
-                lambda scan=scan: scan(buf, off, ai, bi, order, n_short, mo,
-                                       ms, *outs), reps=5)
-        print(f"{label}: this alone: " + "; ".join(
-            f"{n} {t:.4f} ms" for n, t in alone.items()) + f"; on {smi}",
-            flush=True)
-    host_side(other, kind, calls[0], smi)
+        runs = {"call": (lambda: kd.overlap_best_indexed(*call), whole)}
+        if n_long:
+            order, n_short = kd.split_by_length(
+                off[ai.long() + 1] - off[ai.long()])
+            out = [torch.empty(ai.numel(), dtype=t, device=dev)
+                   for t in (torch.int64, torch.float64)]
+            hints = host_hints(call)
+            G = kd.block_scan(buf, off, ai, bi, order, n_short, mo, ms, *out,
+                              *hints)
+            mine = [t.clone() for t in out]
+            theirs = alone()
+            ks = order[int(n_short):].long()
+            if not (torch.equal(mine[0][ks], theirs[0][ks])
+                    and torch.equal(mine[1][ks], theirs[1][ks])):
+                raise AssertionError(f"{label}: block kernels differ")
+            runs[f"block kernel (this at G={G})"] = (
+                lambda: kd.block_scan(buf, off, ai, bi, order, n_short, mo,
+                                      ms, *out, *hints), alone)
+        for what, (this_run, other_run) in runs.items():
+            times = {"this": [], "other": []}
+            for name in ("this", "other", "other", "this"):
+                fn = this_run if name == "this" else other_run
+                times[name].append(cs.cuda_ms(fn, reps=5))
+            print(f"{desc}: {what} equal; " + "; ".join(
+                f"{n} " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
+                for n, ts in times.items()) + f"; on {smi}", flush=True)
     if other_repo is not None:
         e2e(other_repo, smi)
     return 0

@@ -849,7 +849,8 @@ def find_overlaps(
     identical results."""
     import torch
 
-    from .keelime_device import intern, longest_of, overlap_best_indexed
+    from .keelime_device import (L_WARP, count_long, intern, longest_of,
+                                 overlap_best_indexed)
 
     n_frags = len(frags)
     g = GraphAss(n_frags)
@@ -882,11 +883,14 @@ def find_overlaps(
     )
     dev = torch.device(device)
     table = intern(contents)
+    ai = (keys // C).astype(np.int32)
+    longest = longest_of(table[1])
     res_len, res_sc = (t.cpu().numpy() for t in overlap_best_indexed(
         *(torch.from_numpy(x).to(dev) for x in table),
-        torch.from_numpy((keys // C).astype(np.int32)).to(dev),
+        torch.from_numpy(ai).to(dev),
         torch.from_numpy((keys % C).astype(np.int32)).to(dev),
-        min_olen, len_min, longest_of(table[1])))
+        min_olen, len_min, longest,
+        count_long(table[1], ai) if longest > L_WARP else 0))
     k1 = np.searchsorted(keys, ci * C + cj)
     k2 = np.searchsorted(keys, cj * C + ci)
     l1, s1 = res_len[k1], res_sc[k1]
@@ -1464,7 +1468,8 @@ def merge_overlapping_contigs(
     interned once)."""
     import torch
 
-    from .keelime_device import intern, longest_of, overlap_best_indexed
+    from .keelime_device import (count_long, intern, longest_of,
+                                 overlap_best_indexed)
 
     contigs = remove_subset_contigs(contigs)
     # exact prefilter: try_merge_contigs is a no-merge for pairs with
@@ -1495,7 +1500,8 @@ def merge_overlapping_contigs(
         table = intern([s for c in contigs for s in (c.ry, c.seq)])
         ln, sc = overlap_best_indexed(
             *(torch.from_numpy(x).to(dev) for x in table + (ai, bi)),
-            min_olen, len_min, longest_of(table[1]))
+            min_olen, len_min, longest_of(table[1]),
+            count_long(table[1], ai))
         scored = list(zip(ln.cpu().tolist(), sc.cpu().tolist()))
         pre_by_pair = [
             tuple(scored[4 * t : 4 * t + 4])

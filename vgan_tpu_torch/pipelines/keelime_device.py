@@ -20,8 +20,9 @@ score.
   bi[i]) of one table (the latin-1 bytes of every sequence back to back
   and their offsets). On a CUDA device the pairs are split by a's length
   (`split_by_length`) and scanned by `overlap_warp_kernel` (la <=
-  L_WARP, a warp a pair) and `overlap_best_kernel` (longer, a block a
-  pair; not launched when the caller's `longest` is at most L_WARP),
+  L_WARP, a warp a pair) and `overlap_best_kernel` (longer, a
+  thread-block cluster of G CTAs a pair, G from `long_cluster_size`; not
+  launched when the caller's `longest` is at most L_WARP),
   both in csrc/keelime.cu on the current stream, each mapping the bytes
   to the 16-code alphabet as it stages a pair; on the CPU the codes are
   a torch op (`seq_codes`) and the threaded native scan
@@ -42,8 +43,9 @@ sums of the plain versions are all exact: they agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +57,7 @@ LAUNCHES: Dict[str, int] = {"overlap_warp": 0, "overlap_best": 0}
 
 L_WARP = 256
 """Pairs with la <= L_WARP scan a warp a pair (overlap_warp_kernel), the
-longer ones a block a pair (overlap_best_kernel): kLWarp of
+longer ones a cluster a pair (overlap_best_kernel): kLWarp of
 csrc/keelime.cu, which sizes the warp kernel's shared memory."""
 
 
@@ -88,18 +90,28 @@ def code_tables() -> Tuple[np.ndarray, np.ndarray]:
 _TABLE_CACHE: Dict[torch.device, Dict[str, torch.Tensor]] = {}
 
 
+def pair_table(t2: np.ndarray) -> np.ndarray:
+    """[65536] int8: the doubled scores of two cells at once,
+    ptab[(a0 | a1 << 4) | (b0 | b1 << 4) << 8] = t2[a0, b0] + t2[a1, b1]
+    (|.| <= 24), the table overlap_warp_kernel builds in its prologue and
+    overlap_best_kernel copies in."""
+    k = np.arange(1 << 16)
+    return (t2[k & 15, (k >> 8) & 15]
+            + t2[(k >> 4) & 15, k >> 12]).astype(np.int8)
+
+
 def _tables(dev: torch.device) -> Dict[str, torch.Tensor]:
     """code_tables() on `dev`, made once a device: the lut, the doubled
-    table as int32 and as int8 (both [16, 16] row-major), its f32 half
-    for the plain version, and (on the CPU) the native scan's [256 x 256]
-    int16 table indexed by (code_a << 8) | code_b."""
+    table as int8 ([16, 16] row-major), its pair table (pair_table), its
+    f32 half for the plain version, and (on the CPU) the native scan's
+    [256 x 256] int16 table indexed by (code_a << 8) | code_b."""
     tabs = _TABLE_CACHE.get(dev)
     if tabs is None:
         lut, t2 = code_tables()
         tabs = dict(lut=torch.from_numpy(lut).to(dev),
-                    t2=torch.from_numpy(t2.reshape(-1)).to(dev),
                     t2_i8=torch.from_numpy(t2.astype(np.int8).reshape(-1))
                     .to(dev),
+                    pair=torch.from_numpy(pair_table(t2)).to(dev),
                     half=torch.from_numpy(t2.astype(np.float32) / 2).to(dev))
         if dev.type == "cpu":
             native = np.zeros((256, 256), dtype=np.int16)
@@ -215,10 +227,11 @@ def _launch(fn, name, *args):
 
 
 def warp_scan(seq_buf, seq_off, ai, bi, order, n_short, min_olen,
-              min_score, out_len, out_score):
+              min_score, out_len, out_score, n_long=None, longest=None):
     """overlap_warp_kernel on the pairs order[:n_short] (each la <=
     L_WARP), writing out_len / out_score at their indices, on the current
-    stream. CUDA tensors only."""
+    stream. CUDA tensors only. (n_long and longest, the host's hints of
+    the scan signature, are block_scan's.)"""
     from .._native import keelime_lib
 
     dev = seq_buf.device
@@ -234,32 +247,108 @@ def warp_scan(seq_buf, seq_off, ai, bi, order, n_short, min_olen,
                 ctypes.c_void_p(stream))
 
 
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
+"""CTAs a long pair that overlap_best_kernel is launched with, largest
+first (16 is a non-portable cluster size)."""
+MIN_CHUNK = 256
+"""The fewest overlap positions a CTA of a cluster takes (kMinChunk of
+csrc/keelime.cu): a pair of span L keeps at most L // MIN_CHUNK CTAs
+busy."""
+
+
+def long_cluster_size(n_long: int, longest, n_sm: int,
+                      resident: Callable[[int], int]) -> int:
+    """CTAs a long pair: the largest G of CLUSTER_SIZES at which all
+    `n_long` pairs' clusters run at once (n_long * G <= n_sm and
+    `resident(G)`, the card's cudaOccupancyMaxActiveClusters, injected
+    so that this runs without a card, >= n_long) and a CTA's chunk of
+    the longest pair (`longest` bp, None when not known) keeps at least
+    MIN_CHUNK positions; else 1 (also where there is no long pair), at
+    which the pairs' blocks may queue. `resident` is asked only where the
+    other two hold."""
+    for G in CLUSTER_SIZES:
+        if G == 1 or (0 < n_long and n_long * G <= n_sm
+                      and (longest is None or G * MIN_CHUNK <= longest)
+                      and resident(G) >= n_long):
+            return G
+    return 1
+
+
+def long_clusters(n_long: int, G: int, resident: Callable[[int], int]):
+    """Clusters of G CTAs to launch over n_long long pairs: one a pair, at
+    most as many as the card holds at once (they then stride over the
+    pairs); one where there are none (the launch finds no pair) or where
+    the card holds none (the launch is then refused)."""
+    return max(1, min(n_long, resident(G)))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(index: int, G: int) -> int:
+    """Clusters of G CTAs of overlap_best_kernel that card `index` holds
+    at once."""
+    from .._native import keelime_lib
+
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = keelime_lib().overlap_best_max_active_clusters(
+            G, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"overlap_best: residency query for clusters of "
+                           f"{G} failed: CUDA error {rc}")
+    return out.value
+
+
+def card_long_cluster_size(dev: torch.device, n_long: int, longest) -> int:
+    """long_cluster_size for n_long pairs on card `dev`."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    n_sm = torch.cuda.get_device_properties(index).multi_processor_count
+    return long_cluster_size(n_long, longest, n_sm,
+                             lambda G: _resident(index, G))
+
+
 def block_scan(seq_buf, seq_off, ai, bi, order, n_short, min_olen,
-               min_score, out_len, out_score):
+               min_score, out_len, out_score, n_long=None, longest=None,
+               cluster=None) -> int:
     """overlap_best_kernel on the pairs order[n_short:], writing out_len /
-    out_score at their indices, on the current stream. CUDA tensors
-    only."""
+    out_score at their indices, on the current stream: one cluster of G
+    CTAs a pair, G = `cluster` when given (the tests and the smoke force
+    it), else card_long_cluster_size of `n_long` (the long pairs' count)
+    and `longest` (a bound on a's length). Where the caller does not give
+    n_long, it and the table's longest sequence are read back from the
+    card (one wait, behind the split and the warp kernel). Returns G.
+    CUDA tensors only; a launch the card refuses raises, and nothing
+    falls back to a smaller G."""
     from .._native import keelime_lib
 
     dev = seq_buf.device
     tabs = _tables(dev)
+    if n_long is None:
+        head = torch.cat((n_short.to(torch.int64), seq_off)).cpu().numpy()
+        n_long = order.numel() - int(head[0])
+        longest = int(np.diff(head[1:]).max(initial=0))
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    G = cluster or card_long_cluster_size(dev, n_long, longest)
+    clusters = long_clusters(n_long, G, lambda g: _resident(index, g))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _launch(keelime_lib().overlap_best_launch, "overlap_best",
                 seq_buf.data_ptr(), seq_off.data_ptr(), ai.data_ptr(),
                 bi.data_ptr(), order.data_ptr(), n_short.data_ptr(),
-                order.numel(), tabs["lut"].data_ptr(), tabs["t2"].data_ptr(),
-                int(min_olen), float(min_score), out_len.data_ptr(),
-                out_score.data_ptr(), ctypes.c_void_p(stream))
+                order.numel(), tabs["lut"].data_ptr(),
+                tabs["pair"].data_ptr(), int(min_olen), float(min_score),
+                out_len.data_ptr(), out_score.data_ptr(), G, clusters,
+                ctypes.c_void_p(stream))
+    return G
 
 
 def scan_by_class(seq_buf, seq_off, ai, bi, min_olen, min_score,
-                  longest=None, scans=(warp_scan, block_scan)):
+                  longest=None, scans=(warp_scan, block_scan), n_long=None):
     """(out_len [n] int64, out_score [n] f64): the pairs split by a's
     length (split_by_length), scans[0] run on the short class and
     scans[1] on the long one, each writing its pairs' results at their
-    indices. scans[1] is not run when `longest` (a bound on a's length
-    the caller knows on the host) is at most L_WARP."""
+    indices and given the host's hints n_long and longest. scans[1] is
+    not run when `longest` (a bound on a's length the caller knows on the
+    host) is at most L_WARP."""
     n = ai.numel()
     dev = seq_buf.device
     out_len = torch.empty(n, dtype=torch.int64, device=dev)
@@ -270,7 +359,7 @@ def scan_by_class(seq_buf, seq_off, ai, bi, min_olen, min_score,
         scans = scans[:1]
     for scan in scans:
         scan(seq_buf, seq_off, ai, bi, order, n_short, min_olen, min_score,
-             out_len, out_score)
+             out_len, out_score, n_long, longest)
     return out_len, out_score
 
 
@@ -280,17 +369,28 @@ def longest_of(seq_off: np.ndarray) -> int:
     return int(np.diff(seq_off).max(initial=0))
 
 
+def count_long(seq_off: np.ndarray, ai: np.ndarray) -> int:
+    """The pairs whose a is longer than L_WARP, by the table's host
+    offsets and the host's index array: overlap_best_indexed's
+    `n_long`."""
+    return int((np.diff(seq_off)[ai] > L_WARP).sum())
+
+
 def overlap_best_indexed(seq_buf, seq_off, ai, bi, min_olen: int,
-                         min_score: float, longest=None):
+                         min_score: float, longest=None, n_long=None):
     """(len [n] int64, score [n] f64) on seq_buf's device: the reference
     winner of each pair (sequence ai[i], sequence bi[i]) of the table
     (seq_buf uint8, seq_off [S+1] int64; ai, bi int32 [n]). `longest`,
     when given, bounds the length of every a (longest_of the table):
-    at most L_WARP, the block kernel is not launched.
+    at most L_WARP, the block kernel is not launched. `n_long`, when
+    given, is the count of pairs whose a is longer than L_WARP
+    (count_long), which sizes the block kernel's launch without a wait
+    on the card.
 
     CUDA tensors run overlap_warp_kernel and overlap_best_kernel on their
-    length classes, on the current stream, without waiting on the host;
-    a failed build or launch raises. CPU
+    length classes, on the current stream; the host waits on the card
+    only where the long class runs and n_long is not given (block_scan
+    then reads it); a failed build or launch raises. CPU
     tensors run the threaded native scan (cpp/overlapbest.cpp): this is
     the port's one CPU route that is the native library and not the plain
     torch version (plain_indexed), because the native scan is what
@@ -310,7 +410,7 @@ def overlap_best_indexed(seq_buf, seq_off, ai, bi, min_olen: int,
         raise ValueError(f"unsupported device {dev}")
     return scan_by_class(seq_buf.contiguous(), seq_off.contiguous(),
                          ai.contiguous(), bi.contiguous(), min_olen,
-                         min_score, longest)
+                         min_score, longest, n_long=n_long)
 
 
 def overlap_best_batch(pairs: Sequence[Tuple[str, str]], min_olen: int,
@@ -329,7 +429,7 @@ def overlap_best_batch(pairs: Sequence[Tuple[str, str]], min_olen: int,
     buf, off = intern(list(ids))
     out_len, out_score = overlap_best_indexed(
         *(torch.from_numpy(x).to(dev) for x in (buf, off, ai, bi)),
-        min_olen, min_score, longest_of(off))
+        min_olen, min_score, longest_of(off), count_long(off, ai))
     return list(zip(out_len.cpu().tolist(), out_score.cpu().tolist()))
 
 
@@ -452,15 +552,19 @@ def _plain_class(seq_buf, seq_off, ai, bi, ks, min_olen, min_score,
 
 
 def plain_warp_scan(seq_buf, seq_off, ai, bi, order, n_short, min_olen,
-                    min_score, out_len, out_score):
-    """warp_scan's plain version: plain_indexed on order[:n_short]."""
+                    min_score, out_len, out_score, n_long=None,
+                    longest=None):
+    """warp_scan's plain version: plain_indexed on order[:n_short] (the
+    hints unused)."""
     _plain_class(seq_buf, seq_off, ai, bi, order[: int(n_short)], min_olen,
                  min_score, out_len, out_score)
 
 
 def plain_block_scan(seq_buf, seq_off, ai, bi, order, n_short, min_olen,
-                     min_score, out_len, out_score):
-    """block_scan's plain version: plain_indexed on order[n_short:]."""
+                     min_score, out_len, out_score, n_long=None,
+                     longest=None):
+    """block_scan's plain version: plain_indexed on order[n_short:] (the
+    hints unused)."""
     _plain_class(seq_buf, seq_off, ai, bi, order[int(n_short):], min_olen,
                  min_score, out_len, out_score)
 
