@@ -9,8 +9,9 @@ and prints no result):
 1. device  — the card's name, and its name and power limit from
    nvidia-smi; no CUDA device is an error.
 2. build   — the native host library (g++, vgan_tpu_torch/cpp/),
-   csrc/sw.cu, csrc/tree_mcmc.cu and csrc/keelime.cu (nvcc, sm_90a) from
-   the checkout's sources, the four compilers started together; seconds
+   csrc/sw.cu, csrc/tree_mcmc.cu, csrc/keelime.cu, csrc/abundance_mcmc.cu
+   and csrc/haplocart.cu (nvcc, sm_90a) from the checkout's sources, the
+   six compilers started together; seconds
    of each build; `cuobjdump -sass` of the SW library, which must show
    Hopper's DPX max instructions (VIMNMX3, VIADDMNMX) in every
    instantiation of both kernels, and whose DP step (the straight-line block holding the most VIMNMX3, one
@@ -37,11 +38,17 @@ and prints no result):
    (5,179 haplotype paths over a seeded random 16,569-bp backbone, 600
    variants), saved as graph.npz; 8,000 100-bp reads of haplotype 5 as
    FASTQ; `vgan_tpu_torch.cli haplocart --device cuda` once to warm up
-   and twice timed. The TSV must name hap5, the SW kernel must have been
-   launched by those runs, each gather_score_hash call of the warm-up
-   run must equal the plain version (and is timed beside its bound), and
-   final_vec's argmax must equal the `--precise` host oracle's on the
-   same reads. Then the mapper's object path (BatchedMapper.
+   and twice timed. The TSV must name hap5, the SW kernel and
+   hc_node_scores_kernel must have been launched by those runs, each
+   gather_score_hash call of the warm-up run must equal the plain version
+   (and is timed beside its bound), each score_packed call of the warm-up
+   run (the likelihood step) must equal node_scores_plain on the card
+   (sum(b) and final_vec to rtol 1e-12, c to 1e-12 of each node's sum of
+   |A - b|, as the f64 atomics reorder a node's sum) and is timed beside
+   its bound
+   (hc_bound_ms), beside the plain op chain, the GEMV and the whole call,
+   the calls' sum logged as a share of map+score, and final_vec's argmax
+   must equal the `--precise` host oracle's on the same reads. Then the mapper's object path (BatchedMapper.
    _map_reads_obj, the oracle of the production path, whose windows go
    through sw_scores) on 1,000 of the reads: sw_scores launched, every
    alignment equal to the production path's, each call equal to plain
@@ -58,7 +65,13 @@ and prints no result):
    warm up and twice timed: each run must detect exactly the three
    planted taxa, put their posterior medians in [0.65, 0.75],
    [0.20, 0.30] and [0.02, 0.08], write every output file, and launch
-   the SW kernel. Then the reads mapped on the card and on the CPU
+   the SW kernel and abundance_mcmc_segment_kernel. The warm-up run's
+   chain segment (9,899 steps of the detected taxa): the kernel against
+   run_segment_plain on the card (rtol 1e-12), timed a step beside its
+   bound (f64_bound_ms) and its serial floor (the same steps at T = 1),
+   the plain version once, and one CUDA-graph capture of the plain
+   version's ops replayed (the library comparator, never on the path).
+   Then the reads mapped on the card and on the CPU
    (every table field equal), each gather_score_hash call of the card's
    mapping (euka's shapes: 64-row read bucket, its own window and row
    buckets) against the plain version exactly, timed beside its bound; the
@@ -127,7 +140,8 @@ and prints no result):
    CUDA context; gloo carries the accumulator), each through the rank
    runner tests/_torch_rank.py, which runs the CLI's main and prints a
    rank line with its own kernel launches and stage seconds and saves
-   host 0's final_vec. Each rank must launch gather_score_hash_kernel;
+   host 0's final_vec. Each rank must launch gather_score_hash_kernel
+   and hc_node_scores_kernel;
    host 0 alone writes the TSV (one header, one row: hap5 and host 0's
    own read count); host 0's final_vec must equal, to rtol 1e-10, the
    sum over the two halves of the reads of the single-process scorer on
@@ -135,18 +149,22 @@ and prints no result):
    wall time of the two-rank run and each rank's map and score seconds
    are logged. Then the split steps of parallel/mesh.py over the device
    list [cuda:0, cuda:0]: HaploCart's columnar scorer on phase 4's
-   deduplicated table against the single-card scorer (rtol 1e-12), and
+   deduplicated table against the single-card scorer (rtol 1e-12), one
+   hc_node_scores_kernel launch a part, and
    soibean's k-sweep batch of phase 6 split in two halves of rows over
    MULTI_ITER steps (MULTI_BURN of burn-in) against the unsplit batch
    (node ids exact, floats to rtol 1e-10), each half launching the tree
    kernel. A real two-card run needs a machine with two cards.
 
-The kernels line lists the five kernels: gather_score_hash_kernel's
+The kernels line lists the seven kernels: gather_score_hash_kernel's
 launches are those of the HaploCart, soibean, keelime and euka runs
 and of the two ranks of phase 8 together, sw_scores_kernel's those of
 the object path, tree_mcmc_segment_kernel's those of the soibean runs
-and of phase 8's split chains, and the two
-overlap kernels' those of the keelime runs (each counted from 0 just
+and of phase 8's split chains, the two
+overlap kernels' those of the keelime runs,
+abundance_mcmc_segment_kernel's those of the euka runs and
+hc_node_scores_kernel's those of the HaploCart runs, phase 8's two ranks
+and its split scorer (each counted from 0 just
 before its runs); ms, plain_ms and the bound are at the mapper's shape
 (sw_scores: B=32,768 full-length pairs; gather_score_hash: the pool
 batch), for the tree kernel over 200 post-burn-in steps of the soibean
@@ -157,7 +175,9 @@ long pairs of the largest merge batch that has some (each alone on its
 class, with the library's grouped conv1d on the same pairs as
 library_ms, and the cluster size it ran at; then the mitogenome-length
 call's long pairs, ms and bound at its chosen cluster size and ms at
-each forced size).
+each forced size), for the chain over the euka warm-up run's segment
+(library_ms: the CUDA-graph replay) and for the likelihood step at the
+HaploCart warm-up run's largest call (no library call computes it).
 Every timing line names the card and its power limit. The
 second-to-last lines are the nvidia-smi line and one JSON object
 describing the kernels; the last line is
@@ -252,6 +272,24 @@ MITO_FRACTION = 0.9
 # many as phase 6's kernel check runs)
 RANK_TIMEOUT_S = 300
 MULTI_ITER, MULTI_BURN = 1000, 200
+# euka's abundance chain and HaploCart's likelihood step
+AM_SOURCE = "vgan_tpu_torch/csrc/abundance_mcmc.cu"
+AM_REPLACES = "vgan_tpu/infer/abundance_mcmc.py:60"  # _run_seg
+HC_SOURCE = "vgan_tpu_torch/csrc/haplocart.cu"
+# score_packed's mapping_scores + segment_sum (score_batch's at :63-96)
+HC_REPLACES = "vgan_tpu/pipelines/haplocart_device.py:99"
+# f64 instructions: 64 FP64 lanes an SM (33.5 TFLOP/s with a DFMA as two
+# operations, NVIDIA's data sheet). Counted from the sm_90a SASS
+# (cuobjdump -sass): a log is 29 of them (one MUFU.RCP64H, DADD / DMUL /
+# DFMA), an exp 19, a division 9 on its fast path. hc_node_scores_kernel:
+# 36 a position that counts (1 - eps twice, p_obs, (1 - pc) * bg,
+# pc * p_obs, their sum, the log, A +=) and 3 a row (pc, A - b); the
+# chain: 62 a taxon a step (x, exp, the sum, the division, log, n * log
+# and its sum) and 40 a step (the three butterflies, the ratio's exp,
+# the compares).
+F64_LANES = 64
+HC_F64_OPS_PER_POSITION, HC_F64_OPS_PER_ROW = 36, 3
+AM_F64_OPS_PER_TAXON, AM_F64_OPS_PER_STEP = 62, 40
 
 
 START = time.perf_counter()
@@ -293,6 +331,30 @@ def bound_ms(cells: int, hashed_columns: int, nbytes: int):
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def f64_bound_ms(ops: int, nbytes: int):
+    """(least milliseconds, "operations" or "bytes") for `ops` f64
+    instructions over 132 SMs x 64 FP64 lanes at 1.98 GHz against
+    `nbytes` moved over the HBM rate, whichever takes longer."""
+    t_ops = ops / (SMS * F64_LANES * CLOCK_HZ)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _close(label, got, want, rtol):
+    """Raises unless got is within rtol of want elementwise (equal where
+    want is 0 or not finite); returns the largest absolute difference."""
+    import torch
+
+    try:
+        torch.testing.assert_close(got, want, rtol=rtol, atol=0,
+                                   equal_nan=True)
+    except AssertionError as e:
+        raise AssertionError(f"{label}: {e}") from None
+    fin = torch.isfinite(want)
+    return float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
 
 
 def nbytes(*tensors) -> int:
@@ -396,14 +458,16 @@ def phase_device():
 
 # ----------------------------------------------------------------- phase 2
 def phase_build():
-    """The four native libraries, their compilers all started together."""
+    """The six native libraries, their compilers all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from vgan_tpu_torch import _native
 
     builds = (("host", _native.host_lib), ("sw.cu", _native.sw_lib),
               ("tree_mcmc.cu", _native.tree_mcmc_lib),
-              ("keelime.cu", _native.keelime_lib))
+              ("keelime.cu", _native.keelime_lib),
+              ("abundance_mcmc.cu", _native.abundance_mcmc_lib),
+              ("haplocart.cu", _native.haplocart_lib))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {name: pool.submit(build) for name, build in builds}
@@ -718,6 +782,7 @@ def phase_e2e(dev, out_dir, clock):
 
     from vgan_tpu_torch import cli
     from vgan_tpu_torch.mapper import batch_map, sw
+    from vgan_tpu_torch.pipelines import haplocart_device as hd
     from vgan_tpu_torch.pipelines import haplocart_runner as runner
     from vgan_tpu_torch.utils import profiling
 
@@ -725,21 +790,30 @@ def phase_e2e(dev, out_dir, clock):
     tsv = os.path.join(out_dir, "hc.tsv")
     profiling.enable()
     runs = []
-    # the warm-up run keeps each SW kernel call's inputs and outputs
+    # the warm-up run keeps each SW kernel call's and each likelihood
+    # step's inputs and outputs
     kernel, calls = sw.gather_score_hash, []
+    scorer, hc_calls = hd.score_packed, []
 
     def keeping(*args):
         out = kernel(*args)
         calls.append((args, out))
         return out
 
+    def keeping_hc(buf, t, bep, M, S, consensus=False):
+        out = scorer(buf, t, bep, M, S, consensus)
+        hc_calls.append(((buf, t, bep, M, S, consensus), out))
+        return out
+
     sw.reset_launches()
+    hd.reset_launches()
     for i in range(3):  # one warm-up run, two timed
         if os.path.exists(tsv):
             os.remove(tsv)
         profiling.PROFILER.stages.clear()
         batch_map.reset_stage_times()
         sw.gather_score_hash = kernel if i else keeping
+        hd.score_packed = scorer if i else keeping_hc
         try:
             t0 = time.perf_counter()
             rc = cli.main(["haplocart", "--db", db_dir, "-fq1", fq, "-o",
@@ -747,6 +821,7 @@ def phase_e2e(dev, out_dir, clock):
             wall = time.perf_counter() - t0
         finally:
             sw.gather_score_hash = kernel
+            hd.score_packed = scorer
         if rc != 0:
             raise AssertionError(f"cli haplocart returned {rc}")
         st = profiling.PROFILER.stages["map+score"]
@@ -757,16 +832,18 @@ def phase_e2e(dev, out_dir, clock):
             f"{N_READS / st.seconds:.0f} reads/s; mapper stages "
             + json.dumps({k: round(v, 4) if isinstance(v, float) else v
                           for k, v in batch_map.STAGE_TIMES.items()}))
-    launches = dict(sw.LAUNCHES)
+    launches = dict(sw.LAUNCHES, **hd.LAUNCHES)
     with open(tsv) as f:
         lines = f.read().splitlines()
     if lines[0] != "#sample\tpredicted haplogroup\treads" \
             or lines[1].split("\t")[1] != f"hap{HAP}":
         raise AssertionError(f"unexpected TSV: {lines}")
-    if launches["gather_score_hash"] < 1:
-        raise AssertionError(f"SW kernel never launched: {launches}")
+    if launches["gather_score_hash"] < 1 or launches["hc_node_scores"] < 1:
+        raise AssertionError(f"a kernel never launched: {launches}")
     log(f"TSV: {lines[1]}; kernel launches in the 3 runs: {launches}")
     hc_sw = check_sw_calls("haplocart", calls, clock)
+    hc_step = check_hc_calls(hc_calls, [r["map_score_s"] for r in runs[1:]],
+                             clock.smi)
 
     # final_vec against the --precise host oracle on the same reads
     db = runner.load_db(db_dir, dev)
@@ -790,9 +867,116 @@ def phase_e2e(dev, out_dir, clock):
     obj = check_object_path(dev, db.graph, fq, clock)
     timed_runs = runs[1:]
     return dict(launches=launches, runs=runs, sw=hc_sw, object_path=obj,
+                hc_step=hc_step,
                 reads_per_s=[N_READS / r["map_score_s"] for r in timed_runs],
                 cli_wall_s=[r["wall_s"] for r in timed_runs],
                 world=dict(db=db, mapper=mapper, db_dir=db_dir, fq=fq))
+
+
+def hc_bound_ms(buf, views, t, consensus):
+    """f64_bound_ms of one node_scores call on packed views: the positions
+    that count (valid, both codes bases) at HC_F64_OPS_PER_POSITION and
+    every row at HC_F64_OPS_PER_ROW, against the bytes moved once: the
+    buffer, each table the call reads (match_tab; without consensus also
+    mapp_tab, imtab and bg, and qtab where a row without use_bep has a
+    position that counts) and c and sum(b) written."""
+    import torch
+
+    M, S = views.g.shape
+    col = torch.arange(S, device=buf.device)
+    counts = ((col[None, :] < views.take[:, None].long())
+              & (views.g < 4) & (views.r < 4))
+    n_pos = int(counts.sum())
+    tables = [t.match_tab]
+    if not consensus:
+        tables += [t.mapp_tab, t.imtab, t.bg]
+        if bool(counts[views.use_bep == 0].any()):
+            tables.append(t.qtab)
+    ops = HC_F64_OPS_PER_POSITION * n_pos + HC_F64_OPS_PER_ROW * M
+    return f64_bound_ms(ops, buf.numel() + nbytes(*tables)
+                        + 8 * (t.support.shape[0] + 1))
+
+
+def _close_to_node_sums(label, c, pc, views, t, bep, consensus, rtol):
+    """Raises unless c is within rtol of the sum of |A - b| over each
+    node's rows of pc (equal where pc is not finite): the f64 atomics add
+    a node's rows in another order each run, and a node whose rows
+    differ in sign cancels. Returns the largest absolute difference."""
+    import torch
+
+    from vgan_tpu_torch.pipelines import haplocart_device as hd
+
+    plain = hd.packed_batch(views, consensus)
+    d = hd.mapping_scores(plain, t, bep, consensus) - plain.b
+    node = plain.node.long()
+    keep = (node >= 0) & (node < pc.shape[0])
+    mag = torch.zeros_like(pc).index_add_(0, node[keep], d[keep].abs())
+    fin = torch.isfinite(pc)
+    err = (c - pc).abs()[fin]
+    if (not torch.equal(fin, torch.isfinite(c))
+            or not torch.equal(c[~fin], pc[~fin])
+            or not bool((err <= rtol * mag[fin]).all())):
+        raise AssertionError(f"{label}: not within {rtol:g} of each node's "
+                             f"sum of |A - b|")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_hc_calls(calls, map_score_s, smi):
+    """Each score_packed call of a HaploCart run (`calls`: its arguments
+    and final_vec): node_scores, one hc_node_scores_kernel launch on the
+    buffer's views, against node_scores_plain on the card (c to 1e-12 of
+    each node's sum of |A - b|, _close_to_node_sums; sum(b) to rtol
+    1e-12), and the call's final_vec against the plain chain's plus the
+    GEMV, rtol 1e-12. Each
+    timed by CUDA events beside its bound: the kernel (and on the device
+    alone, queued), the plain chain (the production path before the
+    kernel), the GEMV, and the whole call. Logs the calls' sum as a share
+    of the timed runs' map+score."""
+    from vgan_tpu_torch.pipelines import haplocart_device as hd
+
+    if not calls:
+        raise AssertionError("the HaploCart run made no score_packed call")
+    rows, max_err, whole_ms = [], 0.0, 0.0
+    for i, ((buf, t, bep, M, S, cons), out) in enumerate(calls):
+        views = hd.unpack(buf, M, S, t.support.dtype)
+        c, total_b = hd.node_scores(views, t, bep, cons)
+        pc, pb = hd.node_scores_plain(views, t, bep, cons)
+        label = f"haplocart likelihood step call {i} M={M} S={S}"
+        max_err = max(max_err,
+                      _close_to_node_sums(f"{label} c", c, pc, views, t,
+                                          bep, cons, 1e-12),
+                      _close(f"{label} sum(b)", total_b, pb, 1e-12))
+        _close(f"{label} final_vec", out, pb + pc @ t.support, 1e-12)
+        step = dict(
+            ms=cuda_ms(lambda: hd.node_scores(views, t, bep, cons), reps=50),
+            device_ms=queued_ms(lambda: hd.node_scores(views, t, bep, cons),
+                                50),
+            plain_ms=cuda_ms(lambda: hd.node_scores_plain(views, t, bep,
+                                                          cons), reps=5),
+            gemv_ms=cuda_ms(lambda: total_b + c @ t.support, reps=20),
+            call_ms=cuda_ms(lambda: hd.score_packed(buf, t, bep, M, S, cons),
+                            reps=20))
+        step["bound_ms"], step["bound_by"] = hc_bound_ms(buf, views, t,
+                                                         cons)
+        whole_ms += step["call_ms"]
+        dev_txt = ("not measured" if step["device_ms"] is None
+                   else f"{step['device_ms']:.4f} ms")
+        log(f"{label} ({int((views.take > 0).sum())} live rows): kernel "
+            f"{step['ms']:.4f} ms ({100 * step['bound_ms'] / step['ms']:.1f}"
+            f" % of the {step['bound_ms']:.5f} ms bound, {step['bound_by']};"
+            f" on the device alone {dev_txt}), plain chain "
+            f"{step['plain_ms']:.4f} ms, GEMV {step['gemv_ms']:.4f} ms, the "
+            f"whole call {step['call_ms']:.4f} ms; on {smi}")
+        step.update(M=M, S=S)
+        rows.append(step)
+    share = [whole_ms / 1e3 / s for s in map_score_s]
+    log(f"haplocart likelihood step: {len(calls)} calls a run, "
+        f"{whole_ms:.3f} ms together = "
+        + ", ".join(f"{100 * x:.3f}" for x in share)
+        + f" % of the timed runs' map+score; kernel equal to plain (max abs "
+        f"err {max_err:.3g}); on {smi}")
+    return dict(max_abs_err=max_err, calls=rows, calls_a_run=len(calls),
+                sum_ms=whole_ms, share_of_map_score=share)
 
 
 def check_object_path(dev, graph, fq, clock):
@@ -1075,8 +1259,58 @@ def compare_card_cpu(dev, euka_dir, d5, d3, fq, clock):
                 sw=sw_check), rc
 
 
+def check_chain_kernel(args, smi):
+    """abundance_mcmc_segment_kernel against run_segment_plain on the card
+    over a CLI run's own segment (`args`: run_segment's arguments there):
+    proposals, state and likelihood to rtol 1e-12. Timed by CUDA events:
+    the kernel a step beside its bound and the serial floor (the same
+    steps at T = 1), the plain version once, and as the library's
+    comparator one CUDA-graph capture of the plain version's torch ops
+    over the same steps, replayed (its proposals checked; never on the
+    path)."""
+    import torch
+
+    from vgan_tpu_torch.infer import abundance_mcmc as am
+
+    current, cur_ll, z, u, alpha, n_reads, const_ll = args
+    S, T = z.shape
+    (ks, kl), kp = am.run_segment(*args)
+    (ps, pl), pp = am.run_segment_plain(*args)
+    max_err = max(_close("chain kernel proposals", kp, pp, 1e-12),
+                  _close("chain kernel state", ks, ps, 1e-12),
+                  _close("chain kernel likelihood", kl, pl, 1e-12))
+    ms = cuda_ms(lambda: am.run_segment(*args), reps=5)
+    floor = (torch.ones(1, dtype=current.dtype, device=current.device),
+             cur_ll, z[:, :1].contiguous(), u, alpha, n_reads[:1], const_ll)
+    floor_ms = cuda_ms(lambda: am.run_segment(*floor), reps=5)
+    plain_ms = cuda_ms(lambda: am.run_segment_plain(*args), reps=1,
+                       warmup=0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph):
+        (_gs, _gl), gp = am.run_segment_plain(*args)
+    capture_s = time.perf_counter() - t0
+    graph_ms = cuda_ms(graph.replay, reps=2)
+    _close("chain CUDA graph replay proposals", gp, pp, 1e-12)
+    del graph
+    bms, by = f64_bound_ms(S * (AM_F64_OPS_PER_TAXON * T
+                                + AM_F64_OPS_PER_STEP), 2 * S * T * 8)
+    log(f"abundance chain kernel, the CLI run's segment (T={T}, S={S}): "
+        f"{ms:.3f} ms = {1e3 * ms / S:.3f} us a step ({100 * bms / ms:.2f} "
+        f"% of the {bms:.5f} ms bound, {by}); serial floor (T = 1) "
+        f"{1e3 * floor_ms / S:.3f} us a step; plain version {plain_ms:.1f} "
+        f"ms; its ops as one CUDA graph {graph_ms:.1f} ms a replay "
+        f"(captured in {capture_s:.1f} s); equal to plain (max abs err "
+        f"{max_err:.3g}); on {smi}")
+    return dict(T=T, S=S, ms=ms, us_a_step=1e3 * ms / S, floor_ms=floor_ms,
+                plain_ms=plain_ms, graph_ms=graph_ms, capture_s=capture_s,
+                bound_ms=bms, bound_by=by, max_abs_err=max_err)
+
+
 def phase_euka(dev, out_dir, clock):
     from vgan_tpu_torch import cli
+    from vgan_tpu_torch.infer import abundance_mcmc as am
     from vgan_tpu_torch.mapper import batch_map, sw
     from vgan_tpu_torch.pipelines.euka_runner import (
         abundance_mcmc_from_result)
@@ -1089,20 +1323,35 @@ def phase_euka(dev, out_dir, clock):
              "--profile"] + EUKA_GATES)
     profiling.enable()
     runs = []
+    # the warm-up run keeps each chain segment's inputs
+    segment, seg_calls = am.run_segment, []
+
+    def keeping(*args):
+        seg_calls.append(args)
+        return segment(*args)
+
     sw.reset_launches()
+    am.reset_launches()
     for i in range(3):  # one warm-up run, two timed
         for f in os.listdir(out_dir):
             if f.startswith("euka_out_"):
                 os.remove(os.path.join(out_dir, f))
         profiling.PROFILER.stages.clear()
         batch_map.reset_stage_times()
-        before = sw.LAUNCHES["gather_score_hash"]
-        t0 = time.perf_counter()
-        if cli.main(argv) != 0:
-            raise AssertionError("cli euka failed")
-        wall = time.perf_counter() - t0
-        if sw.LAUNCHES["gather_score_hash"] <= before:
-            raise AssertionError(f"euka run {i} launched no SW kernel")
+        before = dict(sw.LAUNCHES, **am.LAUNCHES)
+        am.run_segment = segment if i else keeping
+        try:
+            t0 = time.perf_counter()
+            if cli.main(argv) != 0:
+                raise AssertionError("cli euka failed")
+            wall = time.perf_counter() - t0
+        finally:
+            am.run_segment = segment
+        if sw.LAUNCHES["gather_score_hash"] <= before["gather_score_hash"] \
+                or am.LAUNCHES["abundance_mcmc_segment"] <= before[
+                    "abundance_mcmc_segment"]:
+            raise AssertionError(f"euka run {i} launched no SW kernel or no "
+                                 "chain kernel")
         medians = check_euka_outputs(prefix)
         ms = profiling.PROFILER.stages["map+score"].seconds
         mc = profiling.PROFILER.stages["mcmc"].seconds
@@ -1115,9 +1364,10 @@ def phase_euka(dev, out_dir, clock):
             + json.dumps(medians) + "; mapper stages "
             + json.dumps({k: round(v, 4) if isinstance(v, float) else v
                           for k, v in batch_map.STAGE_TIMES.items()}))
-    launches = dict(sw.LAUNCHES)
+    launches = dict(sw.LAUNCHES, **am.LAUNCHES)
     log(f"euka: detected exactly the planted taxa in all runs; kernel "
         f"launches in the 3 runs: {launches}")
+    chain = check_chain_kernel(seg_calls[-1], clock.smi)
     cmp, res = compare_card_cpu(dev, euka_dir, d5, d3, fq, clock)
 
     def cli_run():
@@ -1130,6 +1380,7 @@ def phase_euka(dev, out_dir, clock):
     log("euka profiled: " + json.dumps(prof))
     timed = runs[1:]
     return dict(launches=launches, runs=runs, compare=cmp, profile=prof,
+                chain=chain,
                 reads_per_s=[n_reads / r["map_score_s"] for r in timed],
                 mcmc_iters_per_s=[EUKA_STEPS / r["mcmc_s"] for r in timed],
                 cli_wall_s=[r["wall_s"] for r in timed])
@@ -1981,9 +2232,10 @@ def two_rank_haplocart(dev, out_dir, world, smi):
         log(f"rank {r['rank']}: kernel launches {json.dumps(r['launches'])}; "
             f"{r['n_reads']} reads kept; map {r['stages_s']['map']:.3f} s, "
             f"score {r['stages_s']['score']:.3f} s on {smi}")
-        if r["launches"]["gather_score_hash"] < 1:
-            raise AssertionError(f"rank {r['rank']} launched no "
-                                 "gather_score_hash_kernel")
+        for k in ("gather_score_hash", "hc_node_scores"):
+            if r["launches"][k] < 1:
+                raise AssertionError(f"rank {r['rank']} launched no {k} "
+                                     "kernel")
     with open(tsv) as f:
         lines = f.read().splitlines()
 
@@ -2025,6 +2277,7 @@ def phase_multi(dev, out_dir, world, ksweep_call, smi):
 
     from vgan_tpu_torch.infer import tree_mcmc as tm
     from vgan_tpu_torch.io import fastx
+    from vgan_tpu_torch.pipelines import haplocart_device as hd
     from vgan_tpu_torch.pipelines import hc_columnar
 
     ranks = two_rank_haplocart(dev, out_dir, world, smi)
@@ -2036,16 +2289,22 @@ def phase_multi(dev, out_dir, world, ksweep_call, smi):
     t0 = time.perf_counter()
     one = hc_columnar.score_table_device(db, table)
     one_s = time.perf_counter() - t0
+    hd.reset_launches()
     t0 = time.perf_counter()
     split = hc_columnar.score_table_device(db, table, devices=[dev, dev])
     split_s = time.perf_counter() - t0
+    hc_launches = hd.LAUNCHES["hc_node_scores"]
     hc_rel = float(np.max(np.abs(split - one) / np.abs(one)))
     if hc_rel > 1e-12 or int(np.argmax(split)) != int(np.argmax(one)):
         raise AssertionError(f"split HaploCart scorer vs one card: max rel "
                              f"diff {hc_rel:g}")
+    if hc_launches != 2:
+        raise AssertionError(f"split HaploCart scorer launched "
+                             f"{hc_launches} hc_node_scores kernels, not 2")
     log(f"split HaploCart scorer over [{dev}, {dev}]: {table.n} reads, "
         f"final_vec equal to one card's (max rel diff {hc_rel:.3g}); "
-        f"{split_s:.3f} s against {one_s:.3f} s on {smi}")
+        f"{hc_launches} hc_node_scores launches; {split_s:.3f} s against "
+        f"{one_s:.3f} s on {smi}")
 
     # soibean's k-sweep batch split in two halves of rows
     args, kw = ksweep_call
@@ -2076,7 +2335,8 @@ def phase_multi(dev, out_dir, world, ksweep_call, smi):
         f"err {max_err:.3g}; {launches} tree kernel launches; {halves_s:.2f} "
         f"s against {whole_s:.2f} s on {smi}")
     return dict(ranks=ranks, hc_split=dict(rel_diff=hc_rel, split_s=split_s,
-                                           one_s=one_s),
+                                           one_s=one_s,
+                                           launches=hc_launches),
                 chains=dict(launches=launches, max_abs_err=max_err,
                             split_s=halves_s, one_s=whole_s))
 
@@ -2127,6 +2387,7 @@ def main() -> int:
     log("summary " + json.dumps(dict(
         card=smi, builds_s=builds, sass=sass, kernels=k,
         haplocart_sw_calls=e2e["sw"], object_path=e2e["object_path"],
+        haplocart_likelihood_step=e2e["hc_step"], euka_chain=eu["chain"],
         e2e_reads_per_s=e2e["reads_per_s"],
         e2e_cli_wall_s=e2e["cli_wall_s"],
         mapper_stage_s=[r["stages"] for r in e2e["runs"]],
@@ -2150,13 +2411,20 @@ def main() -> int:
     # launches: sw_scores from the mapper's object path, gather_score_hash
     # from the HaploCart, soibean, keelime and euka CLI runs and phase 8's
     # two ranks, tree_mcmc_segment from the soibean CLI runs and phase 8's
-    # split chains, the two overlap
-    # kernels from the keelime CLI runs (each counted from 0 just before its
-    # runs); times and bounds at the timing shape, at the mapper's pool
-    # batch, over SB_TIMED_STEPS post-burn-in steps of the soibean k-sweep
-    # batch, at the find_overlaps batch of the keelime warm-up run (warp)
-    # and at the long pairs of the largest merge batch with some (block)
+    # split chains, the two overlap kernels from the keelime CLI runs,
+    # abundance_mcmc_segment from the euka CLI runs, hc_node_scores from
+    # the HaploCart CLI runs, phase 8's two ranks and its split scorer
+    # (each counted from 0 just before its runs); times and bounds at the
+    # timing shape, at the mapper's pool batch, over SB_TIMED_STEPS
+    # post-burn-in steps of the soibean k-sweep batch, at the find_overlaps
+    # batch of the keelime warm-up run (warp), at the long pairs of the
+    # largest merge batch with some (block), over the euka warm-up run's
+    # segment (chain) and at the HaploCart warm-up run's largest
+    # likelihood step
     t_sw, t_gsh, t_tree = k["sw"], k["gsh"]["pool"], sb["kernel"]["post"]
+    # the likelihood step at its largest call of the HaploCart warm-up run
+    t_hc = max(e2e["hc_step"]["calls"], key=lambda c: c["M"] * c["S"])
+    t_am = eu["chain"]
     t_warp = kl["find_overlaps"]["warp"]
     t_block = kl["block_merge"]["block"]
     t_mito = kl["cluster_sweep"]
@@ -2238,6 +2506,39 @@ def main() -> int:
         "mito_ms": t_mito["ms"][t_mito["chosen"]],
         "mito_bound_ms": t_mito["bound_ms"],
         "mito_ms_by_cluster": t_mito["ms"],
+    }, {
+        "name": "abundance_mcmc_segment_kernel",
+        "route": "cuda",
+        "source": AM_SOURCE,
+        "replaces": AM_REPLACES,
+        "launches": eu["launches"]["abundance_mcmc_segment"],
+        "max_abs_err": t_am["max_abs_err"],
+        "ms": t_am["ms"],
+        "plain_ms": t_am["plain_ms"],
+        "bound_ms": t_am["bound_ms"],
+        "bound_by": t_am["bound_by"],
+        "library_ms": t_am["graph_ms"],
+        "steps": t_am["S"],
+        "taxa": t_am["T"],
+        "floor_ms": t_am["floor_ms"],
+    }, {
+        "name": "hc_node_scores_kernel",
+        "route": "cuda",
+        "source": HC_SOURCE,
+        "replaces": HC_REPLACES,
+        "launches": (e2e["launches"]["hc_node_scores"]
+                     + sum(r["launches"]["hc_node_scores"]
+                           for r in mp["ranks"]["ranks"])
+                     + mp["hc_split"]["launches"]),
+        "max_abs_err": e2e["hc_step"]["max_abs_err"],
+        "ms": t_hc["ms"],
+        "plain_ms": t_hc["plain_ms"],
+        "bound_ms": t_hc["bound_ms"],
+        "bound_by": t_hc["bound_by"],
+        "library_ms": None,
+        "M": t_hc["M"],
+        "S": t_hc["S"],
+        "call_ms": t_hc["call_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -7,8 +7,9 @@ what a test needs to see of it:
 runs `vgan_tpu_torch.cli.main` on the given arguments, keeping the
 final_vec of each sample that `haplocart_runner.run_sample` returns;
 host 0 saves the last one to <final_vec.npy>. Every rank then prints
-one line `RANK {json}`: its rank, the reads it kept, its SW kernel
-launches (`mapper.sw.LAUNCHES`) and its stage seconds (with --profile).
+one line `RANK {json}`: its rank, the reads it kept, its kernel
+launches (`mapper.sw.LAUNCHES` and `haplocart_device.LAUNCHES`) and its
+stage seconds (with --profile).
 The JAX package's tests/mh_worker.py plays this part for JAX."""
 import json
 import os
@@ -24,6 +25,7 @@ def main(argv) -> int:
     from vgan_tpu_torch import cli
     from vgan_tpu_torch.mapper import sw
     from vgan_tpu_torch.parallel import multihost
+    from vgan_tpu_torch.pipelines import haplocart_device as hd
     from vgan_tpu_torch.pipelines import haplocart_runner as runner
     from vgan_tpu_torch.utils import profiling
 
@@ -37,6 +39,7 @@ def main(argv) -> int:
 
     runner.run_sample = keeping
     sw.reset_launches()
+    hd.reset_launches()
     rc = cli.main(cli_args)
     if rc != 0:
         return rc
@@ -45,7 +48,8 @@ def main(argv) -> int:
     stages = {k: s.seconds for k, s in profiling.PROFILER.stages.items()}
     print("RANK " + json.dumps(dict(
         rank=seen["rank"], n_reads=int(seen["n_reads"]),
-        launches=dict(sw.LAUNCHES), stages_s=stages, pid=os.getpid())),
+        launches={**sw.LAUNCHES, **hd.LAUNCHES}, stages_s=stages,
+        pid=os.getpid())),
         flush=True)
     return 0
 

@@ -476,3 +476,56 @@ def long_overlap_cases(lut, t2):
     cases["mitogenome"] = ([(seq, seq), (seq[:16000], seq[150:]),
                             (seq[:16400], seq[120:])], 40, 60.0)
     return cases
+
+
+def hc_edge_arrays(rng, n_nodes, n_pang, M0=700, S=8):
+    """A HaploCart mapping batch as pack_batch's arrays, with every edge
+    the scorer must clamp or skip: empty rows (take = 0), codes >= 4 (N
+    and 5..254) in g and r, q and mq past 99, pang past the tables'
+    n_pang entries and below 0, node ids below 0 and at or past
+    n_nodes."""
+    take = rng.integers(0, S + 1, size=M0).astype(np.int32)
+    v = np.arange(S)[None, :] < take[:, None]
+    g = rng.integers(0, 4, size=(M0, S))
+    odd = rng.random((M0, S))
+    g = np.where(odd < 0.03, 4, np.where(odd < 0.05,
+                                         rng.integers(5, 255, (M0, S)), g))
+    r = np.where(rng.random((M0, S)) < 0.9, g, rng.integers(0, 256, (M0, S)))
+    node = rng.integers(0, n_nodes, size=M0)
+    node[rng.random(M0) < 0.02] = n_nodes + 3
+    node[rng.random(M0) < 0.02] = -1
+    pang = rng.integers(1, n_pang, size=M0)
+    pang[rng.random(M0) < 0.03] = n_pang + 7
+    neg = rng.random(M0) < 0.03  # -1 reads the last entry; below -n_pang, 0
+    pang[neg] = -rng.integers(1, 2 * n_pang, size=int(neg.sum()))
+    return dict(
+        g=np.where(v, g, 255).astype(np.uint8),
+        r=np.where(v, r, 255).astype(np.uint8),
+        q=np.where(v, rng.integers(0, 256, size=(M0, S)), 0).astype(np.uint8),
+        mq=rng.integers(0, 256, size=M0).astype(np.uint8),
+        use_bep=(rng.random(M0) < 0.2).astype(np.uint8),
+        pang=pang.astype(np.int32), node=node.astype(np.int32),
+        take=take, b=-rng.random(M0) * 300.0, S=S,
+    )
+
+
+def hc_padded_columns(a, M):
+    """pack_batch's arrays padded to M rows as pack_batch pads them
+    (g = r = 255, everything else 0), with valid [M, S] from take: the
+    columns of an HcBatch holding the same rows as the packed buffer."""
+    M0, S = len(a["b"]), a["S"]
+
+    def pad(x, fill=0):
+        out = np.full((M,) + x.shape[1:], fill, x.dtype)
+        out[:M0] = x
+        return out
+
+    take = pad(a["take"])
+    return dict(
+        g=pad(a["g"], 255).astype(np.int32),
+        r=pad(a["r"], 255).astype(np.int32),
+        q=pad(a["q"]).astype(np.int32), pang=pad(a["pang"]),
+        mq=pad(a["mq"]).astype(np.int32), b=pad(a["b"]), node=pad(a["node"]),
+        valid=np.arange(S)[None, :] < take[:, None],
+        use_bep=pad(a["use_bep"]) > 0,
+    )

@@ -1,5 +1,6 @@
 """CUDA kernels of the port (csrc/sw.cu, csrc/tree_mcmc.cu,
-csrc/keelime.cu) against their plain torch versions (keelime's also
+csrc/keelime.cu, csrc/abundance_mcmc.cu, csrc/haplocart.cu) against their
+plain torch versions (keelime's also
 against the native host scan), and the device paths of the mapper, the
 euka scorer, the abundance MCMC, soibean's k-sweep, keelime and `map`
 against the same code on the CPU, on the card; and the multi-process and
@@ -255,18 +256,208 @@ def test_euka_score_batch_on_card_equals_cpu(dev):
 
 
 def test_run_mcmc_on_card_equals_cpu(dev):
-    """One draw_noise for both: the recorded trace to rtol 1e-12."""
-    from vgan_tpu_torch.infer.abundance_mcmc import run_mcmc
+    """One draw_noise for both: the recorded trace to rtol 1e-12, the
+    card's chain one abundance_mcmc_segment_kernel launch."""
+    from vgan_tpu_torch.infer import abundance_mcmc as am
 
     n = np.array([5600, 2000, 400])
     slog = np.array([5600 * np.log(0.95), 2000 * np.log(0.9),
                      400 * np.log(0.85)])
     init = np.array([0.7, 0.25, 0.05])
     kw = dict(n_iter=3000, burnin=100, seed=5)
-    card = run_mcmc(n, slog, init, device=dev, **kw)
-    cpu = run_mcmc(n, slog, init, device="cpu", **kw)
+    am.reset_launches()
+    card = am.run_mcmc(n, slog, init, device=dev, **kw)
+    assert am.LAUNCHES["abundance_mcmc_segment"] == 1
+    cpu = am.run_mcmc(n, slog, init, device="cpu", **kw)
     np.testing.assert_allclose(card.samples, cpu.samples, rtol=1e-12)
     np.testing.assert_allclose(card.estimate, cpu.estimate, rtol=1e-12)
+
+
+# -------------------------------------------------- abundance chain kernel
+def _chain(dev, T, S, seed, n=None, init=None, const=-40.0):
+    """A chain's inputs on the card: (current, cur_ll, z, u, alpha,
+    n_reads, const_ll), noise from draw_noise."""
+    from vgan_tpu_torch.infer import abundance_mcmc as am
+
+    rng = np.random.default_rng(seed)
+    if n is None:
+        n = rng.integers(0, 400, size=T).astype(np.float64)
+    if init is None:
+        init = rng.gamma(1.0, size=T)
+        init = init / init.sum()
+    z, u = am.draw_noise(S, T, seed)
+    f = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float64,  # noqa
+                                  device=dev)
+    return (f(init), f(am.START_LL), z.to(dev), u.to(dev), 0.1, f(n),
+            f(const))
+
+
+def _kernel_vs_plain(args):
+    """The kernel once and the plain version on the same inputs on the
+    card: proposals, state and likelihood to rtol 1e-12 (exp, log and the
+    sums' order differ in the last bit); returns both."""
+    from vgan_tpu_torch.infer import abundance_mcmc as am
+
+    am.reset_launches()
+    got = am.run_segment(*args)
+    torch.cuda.synchronize()
+    assert am.LAUNCHES["abundance_mcmc_segment"] == 1
+    want = am.run_segment_plain(*args)
+    for a, b in ((got[1], want[1]), (got[0][0], want[0][0]),
+                 (got[0][1], want[0][1])):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=0,
+                                   equal_nan=True)
+    return got, want
+
+
+@pytest.mark.parametrize("S", [1, 9899])
+@pytest.mark.parametrize("T", [2, 3, 33, 334])
+def test_abundance_kernel_equals_plain(dev, T, S):
+    (_carry, props), _want = _kernel_vs_plain(_chain(dev, T, S,
+                                                     seed=T + S))
+    assert props.shape == (S, T) and bool(torch.isfinite(props).all())
+    torch.testing.assert_close(props.sum(1), torch.ones_like(props[:, 0]),
+                               rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("case", ["neg_inf_const", "nan_ratio"])
+def test_abundance_kernel_edge_chains(dev, case):
+    """const_ll = -inf and a taxon with no reads and no share (prop 0
+    there, 0 * log(0) = NaN): every proposal rejects, as in the plain
+    version (CUDA's fmin(1, NaN) would accept)."""
+    from vgan_tpu_torch.infer import abundance_mcmc as am
+
+    if case == "neg_inf_const":
+        args = _chain(dev, 3, 2000, 1, n=[40.0, 10.0, 5.0],
+                      init=[0.5, 0.3, 0.2], const=-np.inf)
+    else:
+        args = _chain(dev, 3, 2000, 2, n=[60.0, 0.0, 25.0],
+                      init=[0.6, 0.0, 0.4], const=-3.0)
+    (state, ll), _props = _kernel_vs_plain(args)[0]
+    assert float(ll) == am.START_LL
+    assert torch.equal(state, args[0])
+
+
+def test_abundance_checkpointed_segments_equal_one_segment(dev, tmp_path):
+    """Segments of 700 steps (one launch each) give the one-segment run's
+    trace bit for bit: the carry is the last accepted proposal itself."""
+    from vgan_tpu_torch.infer import abundance_mcmc as am
+
+    n = np.array([300, 100, 50, 0])
+    slog = np.array([300 * np.log(0.95), 100 * np.log(0.9),
+                     50 * np.log(0.85), 0.0])
+    init = np.array([0.4, 0.3, 0.2, 0.1])
+    kw = dict(n_iter=5000, burnin=100, seed=9, device=dev)
+    am.reset_launches()
+    one = am.run_mcmc(n, slog, init, **kw)
+    seg = am.run_mcmc_checkpointed(n, slog, init, checkpoint_every=700,
+                                   checkpoint_path=str(tmp_path / "ab"),
+                                   **kw)
+    assert am.LAUNCHES["abundance_mcmc_segment"] == 1 + 7
+    np.testing.assert_array_equal(seg.samples, one.samples)
+
+
+# -------------------------------------------- HaploCart likelihood kernel
+def _card_packed(dev, M, S, seed):
+    """pack_batch's buffer built on the card: random rows with codes >= 4,
+    q and mq past 99, pang past the tables and below 0, node ids outside
+    [0, n_nodes), and the last eighth padding rows (g = r = 255,
+    take = b = 0)."""
+    from vgan_tpu_torch.models import mutation
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev)
+
+    def rf(shape):
+        return torch.rand(shape, generator=gen, device=dev,
+                          dtype=torch.float64)
+
+    live = M - M // 8
+    take = ri(0, S + 1, (M,)).to(torch.int32)
+    take[live:] = 0
+    v = torch.arange(S, device=dev)[None, :] < take[:, None]
+    g = ri(0, 4, (M, S))
+    odd = rf((M, S))
+    g = torch.where(odd < 0.03, 4, torch.where(odd < 0.05,
+                                               ri(5, 255, (M, S)), g))
+    r = torch.where(rf((M, S)) < 0.9, g, ri(0, 256, (M, S)))
+    q = ri(0, 256, (M, S))
+    codes = [torch.where(v, x, fill).to(torch.uint8)
+             for x, fill in ((g, 255), (r, 255), (q, 0))]
+    mq = ri(0, 256, (M,)).to(torch.uint8)
+    use_bep = (rf((M,)) < 0.2).to(torch.uint8)
+    pang = ri(1, mutation.PANGENOME_LEN, (M,))
+    pang[rf((M,)) < 0.03] = mutation.PANGENOME_LEN + 7
+    neg = rf((M,)) < 0.03  # -1 reads the last entry; below -PAN, entry 0
+    pang[neg] = -ri(1, 2 * mutation.PANGENOME_LEN, (M,))[neg]
+    node = ri(0, HC_NODES, (M,))
+    node[rf((M,)) < 0.02] = HC_NODES + 3
+    node[rf((M,)) < 0.02] = -1
+    b = -rf((M,)) * 300.0
+    for x in (mq, use_bep, pang, node, b):
+        x[live:] = 0
+    head = torch.cat([x.reshape(-1) for x in codes] + [mq, use_bep])
+    pad = torch.zeros((-head.numel()) % 8, dtype=torch.uint8, device=dev)
+    i32 = torch.cat([pang, node, take]).to(torch.int32).view(torch.uint8)
+    return torch.cat([head, pad, i32, b.view(torch.uint8)])
+
+
+HC_NODES = 2672  # the smoke's HaploCart graph
+
+
+@pytest.mark.parametrize("form", ["packed", "batch"])
+@pytest.mark.parametrize("consensus", [False, True])
+@pytest.mark.parametrize("M,S", [(256, 8), (16384, 8), (131072, 8),
+                                 (256, 128), (16384, 128), (131072, 128),
+                                 (256, 1024), (16384, 1024),
+                                 (131072, 1024)])
+def test_hc_node_scores_kernel_equals_plain(dev, M, S, consensus, form):
+    """One launch against node_scores_plain on the card: sum(b) to rtol
+    1e-12; c to 1e-12 of the sum of |A - b| over each node's rows (the
+    f64 atomics add a node's rows in another order, and a node whose
+    rows differ in sign cancels)."""
+    from vgan_tpu_torch.pipelines import haplocart_device as hd
+
+    t = hd.make_tables(np.ones((HC_NODES, 16)), dev)
+    views = hd.unpack(_card_packed(dev, M, S, seed=M + S), M, S)
+    batch = views if form == "packed" else hd.packed_batch(views, consensus)
+    hd.reset_launches()
+    c, total_b = hd.node_scores(batch, t, 1e-4, consensus)
+    torch.cuda.synchronize()
+    assert hd.LAUNCHES["hc_node_scores"] == 1
+    pc, pb = hd.node_scores_plain(batch, t, 1e-4, consensus)
+    plain = hd.packed_batch(views, consensus)
+    d = hd.mapping_scores(plain, t, 1e-4, consensus) - plain.b
+    node = plain.node.long()
+    keep = (node >= 0) & (node < HC_NODES)
+    mag = torch.zeros(HC_NODES, dtype=torch.float64, device=dev)
+    mag.index_add_(0, node[keep], d[keep].abs())
+    finite = torch.isfinite(pc)
+    assert torch.equal(finite, torch.isfinite(c))
+    assert torch.equal(c[~finite], pc[~finite])
+    assert bool(((c - pc).abs()[finite] <= 1e-12 * mag[finite]).all())
+    torch.testing.assert_close(total_b, pb, rtol=1e-12, atol=0)
+
+
+def test_hc_final_vec_run_to_run(dev):
+    """score_packed twice on one buffer (the flush's shape, M = 16,384,
+    S = 8): final_vec within rtol 1e-12 and the same argmax, though the
+    f64 atomics add in another order each run; and within rtol 1e-12 of
+    the plain chain."""
+    from vgan_tpu_torch import entry
+    from vgan_tpu_torch.pipelines import haplocart_device as hd
+
+    t = hd.make_tables(entry.synth_support(HC_NODES, 5179), dev)
+    buf = _card_packed(dev, 16384, 8, seed=3)
+    runs = [hd.score_packed(buf, t, 1e-4, 16384, 8) for _ in range(3)]
+    plain_c, plain_b = hd.node_scores_plain(hd.unpack(buf, 16384, 8), t,
+                                            1e-4, False)
+    plain = plain_b + plain_c @ t.support
+    for got in runs[1:] + [plain]:
+        torch.testing.assert_close(got, runs[0], rtol=1e-12, atol=0)
+        assert int(got.argmax()) == int(runs[0].argmax())
 
 
 # ------------------------------------------------------------- tree MCMC
@@ -954,7 +1145,8 @@ def test_haplocart_two_ranks_on_one_card(dev, tmp_path):
     from vgan_tpu_torch.pipelines import haplocart_runner as runner
 
     _native.host_lib()
-    _native.sw_lib()  # built once here, so the ranks only load it
+    _native.sw_lib()  # built once here, so the ranks only load them
+    _native.haplocart_lib()
     _g, db_dir, fq, reads = world.build(synth, tmp_path, n_bp=3000,
                                         n_haps=16, n_variants=40,
                                         n_reads=600)
@@ -967,6 +1159,7 @@ def test_haplocart_two_ranks_on_one_card(dev, tmp_path):
              for line in log.splitlines() if line.startswith("RANK ")]
     assert sorted(r["rank"] for r in ranks) == [0, 1]
     assert all(r["launches"]["gather_score_hash"] >= 1 for r in ranks)
+    assert all(r["launches"]["hc_node_scores"] == 1 for r in ranks)
     db = runner.load_db(db_dir, dev)
     mapper = runner.Mapper(db.graph, k=31, w=11, device=dev)
     want = 0.0
@@ -995,7 +1188,9 @@ def test_split_scorers_on_repeated_card_equal_one_card(dev, tmp_path):
 
     tables = hd.make_tables(entry.synth_support(2000, 1000), dev)
     batch = entry.synth_batch(3001, dev, n_nodes=2000)
+    hd.reset_launches()
     got = mesh.score_batch_split(batch, [tables, tables])
+    assert hd.LAUNCHES["hc_node_scores"] == 2  # one a part
     torch.testing.assert_close(got, hd.score_batch(batch, tables),
                                rtol=1e-12, atol=0)
     tree = parse_newick("((a:0.1,b:0.2)n1:0.3,(c:0.15,d:0.25)n2:0.2)root;")

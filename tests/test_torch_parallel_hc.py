@@ -49,9 +49,10 @@ def test_haplocart_two_ranks_match_jax_shard_sum(tmp_path):
                    key=lambda r: r["rank"])
     assert [r["rank"] for r in ranks] == [0, 1]
     for r in ranks:
-        # each rank mapped and scored its own half (on the CPU the SW
-        # wrappers run their plain versions: no kernel launch)
-        assert r["launches"] == {"sw_scores": 0, "gather_score_hash": 0}
+        # each rank mapped and scored its own half (on the CPU the SW and
+        # scorer wrappers run their plain versions: no kernel launch)
+        assert r["launches"] == {"sw_scores": 0, "gather_score_hash": 0,
+                                 "hc_node_scores": 0}
         assert r["stages_s"]["map"] > 0 and "score" in r["stages_s"]
 
     jdb = jax_runner.load_db(db_dir)

@@ -6,9 +6,10 @@
   holds the seeding, finalize, graph-alignment, reconstruction, FASTQ
   and GAM codecs and keelime's overlap and window scans.
 * The CUDA kernel libraries: nvcc on `csrc/sw.cu` (Smith-Waterman), on
-  `csrc/tree_mcmc.cu` (soibean's tree MCMC) and on `csrc/keelime.cu`
-  (keelime's batched overlap scans), each for sm_90a, a plain C
-  interface loaded with ctypes.
+  `csrc/tree_mcmc.cu` (soibean's tree MCMC), on `csrc/keelime.cu`
+  (keelime's batched overlap scans), on `csrc/abundance_mcmc.cu` (euka's
+  abundance chain) and on `csrc/haplocart.cu` (HaploCart's likelihood
+  step), each for sm_90a, a plain C interface loaded with ctypes.
 
 Both land in `_build/` beside this file (gitignored), named by a hash
 of their sources and flags, so an edited source rebuilds and a stale
@@ -41,6 +42,8 @@ HOST_LIBS = ["-lz", "-lpthread"]
 SW_SRC = os.path.join(_PKG_DIR, "csrc", "sw.cu")
 TREE_MCMC_SRC = os.path.join(_PKG_DIR, "csrc", "tree_mcmc.cu")
 KEELIME_SRC = os.path.join(_PKG_DIR, "csrc", "keelime.cu")
+ABUNDANCE_MCMC_SRC = os.path.join(_PKG_DIR, "csrc", "abundance_mcmc.cu")
+HAPLOCART_SRC = os.path.join(_PKG_DIR, "csrc", "haplocart.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -204,3 +207,57 @@ def _type_keelime(lib: ctypes.CDLL) -> None:
     lib.overlap_best_max_active_clusters.argtypes = [
         i32, ctypes.POINTER(i32),  # cluster; out: clusters resident at once
     ]
+
+
+_VP, _I32, _I64, _F64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                         ctypes.c_double)
+ABUNDANCE_MCMC_ARGTYPES = [
+    _VP, _VP,                  # carry: current [T], cur_ll [1]
+    _VP, _VP,                  # z [S, T], u [S]
+    _VP, _VP,                  # n_reads [T], const_ll [1]
+    _F64, _I32, _I64,          # alpha, T, S
+    _VP,                       # out [S, T]
+    _VP,                       # stream
+]
+"""The argument types of abundance_mcmc_segment_launch."""
+HC_NODE_SCORES_ARGTYPES = [
+    _I32,                      # code bytes: 1 (uint8) or 4 (int32)
+    _VP, _VP, _VP, _VP,        # g, r, q [M, S], mq [M]
+    _VP, _VP, _VP,             # use_bep [M] | null, take | valid
+    _VP, _VP, _VP,             # pang, node [M] int32, b [M] f64
+    _VP, _I32, _VP, _I32,      # qtab, imtab and their lengths
+    _VP, _I32, _VP, _I32,      # match_tab, mapp_tab
+    _VP, _I32,                 # bg
+    _F64, _I32,                # bep, consensus
+    _I64, _I32, _I32,          # M, S, n_nodes
+    _VP, _VP,                  # out: c [n_nodes], total_b [1]
+    _VP,                       # stream
+]
+"""The argument types of hc_node_scores_launch."""
+
+
+def _typed_lib(key: str, name: str, src: str, fn: str,
+               argtypes: list) -> ctypes.CDLL:
+    lib = _loaded.get(key)
+    if lib is None:
+        lib = _nvcc_lib(name, src)
+        getattr(lib, fn).restype = _I32
+        getattr(lib, fn).argtypes = argtypes
+        _loaded[key] = lib
+    return lib
+
+
+def abundance_mcmc_lib() -> ctypes.CDLL:
+    """The CUDA abundance-chain kernel (csrc/abundance_mcmc.cu), built with
+    nvcc for sm_90a on first use, with its C entry point typed."""
+    return _typed_lib("abundance_mcmc", "vgan_abundance_mcmc",
+                      ABUNDANCE_MCMC_SRC, "abundance_mcmc_segment_launch",
+                      ABUNDANCE_MCMC_ARGTYPES)
+
+
+def haplocart_lib() -> ctypes.CDLL:
+    """The CUDA HaploCart likelihood-step kernel (csrc/haplocart.cu),
+    built with nvcc for sm_90a on first use, with its C entry point
+    typed."""
+    return _typed_lib("haplocart", "vgan_haplocart", HAPLOCART_SRC,
+                      "hc_node_scores_launch", HC_NODE_SCORES_ARGTYPES)

@@ -32,11 +32,17 @@ the JAX noise in through the same input.
 
 Everything is f64 (the JAX package's f32-on-TPU rule was a TPU
 compiler workaround and is not carried over).
+
+A segment of the chain is `run_segment`: on the card one launch of
+abundance_mcmc_segment_kernel (csrc/abundance_mcmc.cu, one warp for the
+whole segment), where the JAX package runs one lax.scan program; on the
+CPU its plain version `run_segment_plain`, a Python loop of torch ops.
 """
 from __future__ import annotations
 
+import ctypes
 import os
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -65,9 +71,10 @@ def draw_noise(n: int, T: int, seed: int):
     return z, u
 
 
-def run_segment(current, cur_ll, z, u, alpha, n_reads, const_ll):
+def run_segment_plain(current, cur_ll, z, u, alpha, n_reads, const_ll):
     """S Metropolis-Hastings steps on the device of `current`, one per
-    row of z [S, T] / u [S]. Returns ((state, ll), proposals [S, T]).
+    row of z [S, T] / u [S], as a Python loop of torch ops. Returns
+    ((state, ll), proposals [S, T]).
 
     Every step records its PROPOSAL (reference quirk). A NaN acceptance
     ratio rejects, since u <= NaN is false. No value leaves the device
@@ -83,6 +90,67 @@ def run_segment(current, cur_ll, z, u, alpha, n_reads, const_ll):
         cur_ll = torch.where(accept, prop_ll, cur_ll)
         out[s] = prop
     return (current, cur_ll), out
+
+
+LAUNCHES: Dict[str, int] = {"abundance_mcmc_segment": 0}
+"""Kernel launches since the last reset_launches()."""
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def run_segment(current, cur_ll, z, u, alpha, n_reads, const_ll):
+    """S Metropolis-Hastings steps (see run_segment_plain). CPU tensors
+    run the plain version. CUDA tensors launch
+    abundance_mcmc_segment_kernel (csrc/abundance_mcmc.cu) once, on
+    copies of the carry, or raise."""
+    dev = z.device
+    if dev.type == "cpu":
+        return run_segment_plain(current, cur_ll, z, u, alpha, n_reads,
+                                 const_ll)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from .._native import abundance_mcmc_lib
+
+    S, T = z.shape
+    if current.shape != (T,) or n_reads.shape != (T,) or u.shape != (S,) \
+            or cur_ll.numel() != 1 or torch.as_tensor(const_ll).numel() != 1:
+        raise ValueError(
+            f"abundance_mcmc: shapes current {tuple(current.shape)}, z "
+            f"{tuple(z.shape)}, u {tuple(u.shape)}, n_reads "
+            f"{tuple(n_reads.shape)}")
+    if not 1 <= T <= 1024:
+        raise ValueError(f"abundance_mcmc: {T} taxa (the kernel takes "
+                         "1..1,024)")
+    const_ll = torch.as_tensor(const_ll, dtype=F64, device=dev)
+    ins = [current, cur_ll, z, u, n_reads, const_ll]
+    if any(x.device != dev for x in ins):
+        raise ValueError("abundance_mcmc: inputs on different devices")
+    state = current.to(F64, copy=True).contiguous()
+    ll = cur_ll.to(F64, copy=True).reshape(())
+    z_c, u_c, n_c, k_c = (x.to(F64).contiguous()
+                          for x in (z, u, n_reads, const_ll))
+    out = torch.empty((S, T), dtype=F64, device=dev)
+    if S:
+        lib = abundance_mcmc_lib()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.abundance_mcmc_segment_launch(
+                _ptr(state), _ptr(ll), _ptr(z_c), _ptr(u_c), _ptr(n_c),
+                _ptr(k_c), float(alpha), T, S, _ptr(out),
+                ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(
+                f"abundance_mcmc_segment kernel launch failed: CUDA error "
+                f"{rc}")
+        LAUNCHES["abundance_mcmc_segment"] += 1
+    return (state, ll), out
 
 
 def _summarize(samples: np.ndarray) -> AbundanceResult:

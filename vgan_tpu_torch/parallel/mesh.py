@@ -9,7 +9,8 @@ takes an explicit list of devices instead:
 * HaploCart (`score_batch_split`): the mapping rows split over the
   devices, the scorer tables replicated on each; per device, the
   per-node accumulator c_k = segment_sum(A - b, node) and sum(b)_k are
-  computed there; the parts are summed on the first device in device
+  computed there (haplocart_device.node_scores: one kernel launch on a
+  card); the parts are summed on the first device in device
   order, then one GEMV with the support matrix there.
 * euka (`score_rows_split`): the per-read scorer's rows split, the
   outputs concatenated in order; no reduction.
@@ -94,19 +95,15 @@ def score_batch_split(batch, tables: Sequence, bep=1e-4,
     device in device order, and one GEMV there gives
     sum(b) + c @ support (the JAX package's sharded_score_fn with tp = 1,
     its psum in device order)."""
-    from ..pipelines.haplocart_device import HcBatch, mapping_scores
+    from ..pipelines.haplocart_device import HcBatch, node_scores
 
-    n_nodes = tables[0].support.shape[0]
     parts = []
     # every device's work is queued before any part is read back
     for rows, t in zip(split_rows(batch.g.shape[0], len(tables)), tables):
         dev = t.support.device
         sub = HcBatch(**{f.name: getattr(batch, f.name)[rows].to(dev)
                          for f in fields(HcBatch)})
-        d = mapping_scores(sub, t, bep, consensus) - sub.b
-        c = torch.zeros(n_nodes, dtype=d.dtype, device=dev)
-        c.index_add_(0, sub.node.long(), d)
-        parts.append((c, sub.b.sum()))
+        parts.append(node_scores(sub, t, bep, consensus))
     dev0 = tables[0].support.device
     c, total_b = parts[0]
     for ck, bk in parts[1:]:

@@ -194,9 +194,10 @@ def score_alignments_multihost(db, local_alignments, bep: float = 1e-4,
                                is_consensus_fasta: bool = False):
     """HaploCart scorer with the mapping axis sharded across ALL
     processes: each rank builds the batch of its own alignments and
-    computes, on db.device, A = mapping_scores, c = segment_sum(A - b,
-    node) and sum(b); c and sum(b) are summed over the ranks (one gloo
-    all-reduce of an n_nodes + 1 f64 CPU vector); then each rank forms
+    computes, on db.device, c = segment_sum(A - b, node) and sum(b)
+    (haplocart_device.node_scores, A = mapping_scores); c and sum(b)
+    are summed over the ranks (one gloo all-reduce of an n_nodes + 1
+    f64 CPU vector); then each rank forms
     final_vec = sum(b) + c @ support, one GEMV on its device
     (`src/HaploCart.cpp:408-421` over the cluster). A rank may hold
     zero mapped reads: it contributes zeros. Every rank returns the
@@ -207,7 +208,7 @@ def score_alignments_multihost(db, local_alignments, bep: float = 1e-4,
     from ..pipelines.haplocart_device import (
         batch_from_alignments,
         device_tables,
-        mapping_scores,
+        node_scores,
     )
     from ..utils import guards
 
@@ -219,9 +220,9 @@ def score_alignments_multihost(db, local_alignments, bep: float = 1e-4,
     if batch is not None:
         if is_consensus_fasta:
             batch.use_bep = torch.ones_like(batch.use_bep)
-        A = mapping_scores(batch, tables, bep, is_consensus_fasta)
-        part[:n_nodes].index_add_(0, batch.node.long(), A - batch.b)
-        part[n_nodes] = batch.b.sum()
+        c, total_b = node_scores(batch, tables, bep, is_consensus_fasta)
+        part[:n_nodes] = c
+        part[n_nodes] = total_b
     if active() and process_count() > 1:
         host = part.cpu()
         dist.all_reduce(host, op=dist.ReduceOp.SUM)

@@ -2,11 +2,13 @@
 """Device-resident HaploCart scoring step.
 
 The full per-batch compute of `src/HaploCart.cpp:408-421`: per-base
-probability math on [M, S] mapping tiles, per-node scatter-accumulation
-(`index_add_`, the JAX code's segment_sum), and the path reduction as a
-single [n_nodes] x [n_nodes, n_paths] matrix-vector product. M = total
-mappings in the batch, S = max node length (8 for the HC graph,
-`src/test.cpp:627`).
+probability math on [M, S] mapping tiles and per-node
+scatter-accumulation (the JAX code's segment_sum) in one function,
+`node_scores` (on the card one launch of hc_node_scores_kernel,
+csrc/haplocart.cu; on the CPU its plain version, `mapping_scores` +
+`index_add_`), then the path reduction as a single [n_nodes] x
+[n_nodes, n_paths] matrix-vector product. M = total mappings in the
+batch, S = max node length (8 for the HC graph, `src/test.cpp:627`).
 
 Everything runs in float64 on the CPU and on the card alike (the H100
 has native f64; the JAX package's f32-on-TPU rule, `_default_dtype`,
@@ -15,8 +17,9 @@ take tensors that already sit on a device, or a `device` argument.
 """
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -100,6 +103,14 @@ def tables_from_numpy(d: dict, device) -> HcTables:
     })
 
 
+def _table_index(i: torch.Tensor, n: int) -> torch.Tensor:
+    """Index i into a table of n entries as JAX's gather takes it: a
+    negative index counts from the end, then the index clamps to the
+    table."""
+    i = i.long()
+    return torch.where(i < 0, i + n, i).clamp(0, n - 1)
+
+
 def mapping_scores(batch: HcBatch, t: HcTables, bep, consensus: bool):
     """Per-mapping supported-increment A[M] (`src/process_mapping.cpp:54-81`)."""
     qv = t.qtab[batch.q.clamp(0, 99).long()]
@@ -111,16 +122,18 @@ def mapping_scores(batch: HcBatch, t: HcTables, bep, consensus: bool):
     bep_t = torch.as_tensor(bep, dtype=qv.dtype, device=qv.device)
     eps_b = torch.where(match, bep_t, 1.0 - bep_t)
     eps = torch.where(batch.use_bep[:, None], eps_b, eps_q)
-    p_obs = t.match_tab[batch.pang.long()][:, None] * (1.0 - eps)
+    # pang and r index their tables as the JAX gathers do (_table_index)
+    match_p = t.match_tab[_table_index(batch.pang, t.match_tab.shape[0])]
+    p_obs = match_p[:, None] * (1.0 - eps)
     if consensus:
         term = torch.log((1.0 - bep_t) * p_obs)
     else:
         p_correct = (
             1.0 - t.imtab[batch.mq.clamp(0, 99).long()]
-        ) * t.mapp_tab[batch.pang.long()]
-        # codes past the table (255 padding) read its last entry, as
-        # the JAX gather clamps; those positions are masked below
-        bg = t.bg[batch.r.long().clamp(0, t.bg.shape[0] - 1)]
+        ) * t.mapp_tab[_table_index(batch.pang, t.mapp_tab.shape[0])]
+        # codes past the table (255 padding) read its last entry; those
+        # positions are masked below
+        bg = t.bg[_table_index(batch.r, t.bg.shape[0])]
         term = torch.log(
             (1.0 - p_correct)[:, None] * bg + p_correct[:, None] * p_obs
         )
@@ -128,43 +141,167 @@ def mapping_scores(batch: HcBatch, t: HcTables, bep, consensus: bool):
     return torch.where(valid, term, zero).sum(dim=1)
 
 
-def score_batch(batch: HcBatch, t: HcTables, bep=1e-4,
-                consensus: bool = False):
-    """final_vec over paths for one batch of mappings."""
-    A = mapping_scores(batch, t, bep, consensus)
-    d = A - batch.b
-    c = torch.zeros(t.support.shape[0], dtype=d.dtype, device=d.device)
-    c.index_add_(0, batch.node.long(), d)  # segment_sum over node ids
-    return batch.b.sum() + c @ t.support
+@dataclass
+class HcPacked:
+    """hc_columnar.pack_batch's single uint8 buffer as views into it (no
+    copy): the columns as the buffer holds them."""
+
+    g: torch.Tensor  # [M, S] uint8
+    r: torch.Tensor  # [M, S] uint8
+    q: torch.Tensor  # [M, S] uint8
+    mq: torch.Tensor  # [M] uint8
+    use_bep: torch.Tensor  # [M] uint8 (> 0: set)
+    pang: torch.Tensor  # [M] int32
+    node: torch.Tensor  # [M] int32
+    take: torch.Tensor  # [M] int32: positions s < take are valid
+    b: torch.Tensor  # [M] f64
 
 
-def score_packed(buf: torch.Tensor, t: HcTables, bep, M: int, S: int,
-                 consensus: bool = False):
-    """Unpack hc_columnar.pack_batch's single uint8 buffer (already on
-    the tables' device) and score it; the byte layout is the JAX
-    package's, so both sides can be fed the same buffer."""
-    o = 0
-    grq = buf[: 3 * M * S].view(3, M, S).to(torch.int32)
+def unpack(buf: torch.Tensor, M: int, S: int, dtype=F64) -> HcPacked:
+    """Views of pack_batch's buffer (the JAX package's byte layout, so
+    both sides can be fed the same buffer): [3*M*S] g|r|q, [2*M]
+    mq|use_bep, pad to 8, [12*M] pang|node|take int32, [M] b as dtype."""
+    grq = buf[: 3 * M * S].view(3, M, S)
     o = 3 * M * S
-    mq = buf[o : o + M].to(torch.int32)
-    use_bep = buf[o + M : o + 2 * M] > 0
+    mq, use_bep = buf[o : o + M], buf[o + M : o + 2 * M]
     o += 2 * M
     o += (-o) % 8
     i32 = buf[o : o + 12 * M].view(torch.int32)
     o += 12 * M
-    dt = t.support.dtype
-    isz = torch.empty((), dtype=dt).element_size()
-    b = buf[o : o + isz * M].view(dt)
-    take = i32[2 * M :]
-    valid = (torch.arange(S, dtype=torch.int32, device=buf.device)[None, :]
-             < take[:, None])
+    isz = torch.empty((), dtype=dtype).element_size()
+    return HcPacked(g=grq[0], r=grq[1], q=grq[2], mq=mq, use_bep=use_bep,
+                    pang=i32[:M], node=i32[M : 2 * M], take=i32[2 * M :],
+                    b=buf[o : o + isz * M].view(dtype))
+
+
+def packed_batch(p: HcPacked, consensus: bool) -> HcBatch:
+    """The HcBatch that the packed views stand for (consensus sets every
+    row's use_bep, as the packed path always has)."""
+    S = p.g.shape[1]
+    valid = (torch.arange(S, dtype=torch.int32, device=p.g.device)[None, :]
+             < p.take[:, None])
+    use_bep = p.use_bep > 0
     if consensus:
         use_bep = torch.ones_like(use_bep)
-    batch = HcBatch(
-        g=grq[0], r=grq[1], q=grq[2], pang=i32[:M], mq=mq, b=b,
-        node=i32[M : 2 * M], valid=valid, use_bep=use_bep,
-    )
-    return score_batch(batch, t, bep, consensus)
+    return HcBatch(g=p.g.to(torch.int32), r=p.r.to(torch.int32),
+                   q=p.q.to(torch.int32), pang=p.pang,
+                   mq=p.mq.to(torch.int32), b=p.b, node=p.node, valid=valid,
+                   use_bep=use_bep)
+
+
+LAUNCHES: Dict[str, int] = {"hc_node_scores": 0}
+"""Kernel launches since the last reset_launches()."""
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def node_scores_plain(batch, t: HcTables, bep, consensus: bool):
+    """(c [n_nodes], sum(b)): c = segment_sum(A - b, node) over the rows
+    of an HcBatch or of packed views, A = mapping_scores. Node ids
+    outside [0, n_nodes) are dropped, as jax.ops.segment_sum drops
+    them."""
+    if isinstance(batch, HcPacked):
+        batch = packed_batch(batch, consensus)
+    d = mapping_scores(batch, t, bep, consensus) - batch.b
+    n_nodes = t.support.shape[0]
+    node = batch.node.long()
+    keep = (node >= 0) & (node < n_nodes)
+    c = torch.zeros(n_nodes, dtype=d.dtype, device=d.device)
+    # segment_sum over node ids
+    c.index_add_(0, node.clamp(0, n_nodes - 1),
+                 torch.where(keep, d, torch.zeros((), dtype=d.dtype,
+                                                  device=d.device)))
+    return c, batch.b.sum()
+
+
+def _ptr(x: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if x is None else x.data_ptr())
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    """A bool or uint8 flag tensor as contiguous uint8 (a bool tensor is
+    viewed, not copied)."""
+    if x.dtype == torch.bool:
+        x = x.view(torch.uint8)
+    elif x.dtype != torch.uint8:
+        raise ValueError(f"node_scores: flags of dtype {x.dtype}")
+    return x.contiguous()
+
+
+def node_scores(batch, t: HcTables, bep, consensus: bool):
+    """(c [n_nodes], sum(b)) of an HcBatch or of packed views (see
+    node_scores_plain). CPU tensors run the plain version. CUDA tensors
+    launch hc_node_scores_kernel (csrc/haplocart.cu) once, which reads
+    the packed buffer in place, or raise."""
+    dev = t.support.device
+    if dev.type == "cpu":
+        return node_scores_plain(batch, t, bep, consensus)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from .._native import haplocart_lib
+
+    packed = isinstance(batch, HcPacked)
+    M, S = batch.g.shape
+    cols = [batch.g, batch.r, batch.q, batch.mq, batch.use_bep, batch.pang,
+            batch.node, batch.b, batch.take if packed else batch.valid]
+    if any(x.device != dev for x in cols):
+        raise ValueError("node_scores: batch and tables on different devices")
+    if any(x.shape != (M, S) for x in cols[1:3]) or any(
+            x.shape != (M,) for x in cols[3:8]):
+        raise ValueError("node_scores: batch columns of different shapes")
+    codes = cols[:4]
+    if not all(x.dtype == torch.uint8 for x in codes):
+        codes = [x.to(torch.int32) for x in codes]
+    codes = [x.contiguous() for x in codes]
+    i32 = [x.to(torch.int32).contiguous() for x in (batch.pang, batch.node)]
+    b = batch.b.to(F64).contiguous()
+    if packed:
+        use_bep = None if consensus else _bytes(batch.use_bep)
+        take, valid = batch.take.to(torch.int32).contiguous(), None
+    else:
+        use_bep = _bytes(batch.use_bep)
+        take, valid = None, _bytes(batch.valid)
+    tabs = [x.to(F64).contiguous() for x in (t.qtab, t.imtab, t.match_tab,
+                                             t.mapp_tab, t.bg)]
+    n_nodes = t.support.shape[0]
+    c = torch.zeros(n_nodes, dtype=F64, device=dev)
+    total_b = torch.zeros((), dtype=F64, device=dev)
+    if M:
+        lib = haplocart_lib()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.hc_node_scores_launch(
+                codes[0].element_size(), *[_ptr(x) for x in codes],
+                _ptr(use_bep), _ptr(take), _ptr(valid), _ptr(i32[0]),
+                _ptr(i32[1]), _ptr(b),
+                *[a for x in tabs for a in (_ptr(x), x.shape[0])],
+                float(bep), int(bool(consensus)), M, S, n_nodes, _ptr(c),
+                _ptr(total_b), ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(
+                f"hc_node_scores kernel launch failed: CUDA error {rc}")
+        LAUNCHES["hc_node_scores"] += 1
+    return c, total_b
+
+
+def score_batch(batch: HcBatch, t: HcTables, bep=1e-4,
+                consensus: bool = False):
+    """final_vec over paths for one batch of mappings."""
+    c, total_b = node_scores(batch, t, bep, consensus)
+    return total_b + c @ t.support
+
+
+def score_packed(buf: torch.Tensor, t: HcTables, bep, M: int, S: int,
+                 consensus: bool = False):
+    """Score hc_columnar.pack_batch's single uint8 buffer (already on the
+    tables' device) as it lies: one node_scores over its views, then the
+    GEMV."""
+    c, total_b = node_scores(unpack(buf, M, S, t.support.dtype), t, bep,
+                             consensus)
+    return total_b + c @ t.support
 
 
 def batch_from_alignments(db, alignments, device, max_node_len: int = 0,
