@@ -10,8 +10,9 @@ and prints no result):
    nvidia-smi; no CUDA device is an error.
 2. build   — the native host library (g++, vgan_tpu_torch/cpp/),
    csrc/sw.cu, csrc/tree_mcmc.cu, csrc/keelime.cu, csrc/abundance_mcmc.cu
-   and csrc/haplocart.cu (nvcc, sm_90a) from the checkout's sources, the
-   six compilers started together; seconds
+   and csrc/haplocart.cu (nvcc, sm_90a) from the checkout's sources, and
+   csrc/haplocart.cu's measurement build (-DVGAN_HC_PHASE_CLOCKS), the
+   seven compilers started together; seconds
    of each build; `cuobjdump -sass` of the SW library, which must show
    Hopper's DPX max instructions (VIMNMX3, VIADDMNMX) in every
    instantiation of both kernels, and whose DP step (the straight-line block holding the most VIMNMX3, one
@@ -47,6 +48,9 @@ and prints no result):
    |A - b|, as the f64 atomics reorder a node's sum) and is timed beside
    its bound
    (hc_bound_ms), beside the plain op chain, the GEMV and the whole call,
+   with its phase split from the measurement build (the main kernel's
+   clock64 cycles in each phase, summed over rows: the issue of the next
+   tile's loads, the table gathers, the S terms, the atomic add),
    the calls' sum logged as a share of map+score, and final_vec's argmax
    must equal the `--precise` host oracle's on the same reads. Then the mapper's object path (BatchedMapper.
    _map_reads_obj, the oracle of the production path, whose windows go
@@ -67,10 +71,17 @@ and prints no result):
    [0.20, 0.30] and [0.02, 0.08], write every output file, and launch
    the SW kernel and abundance_mcmc_segment_kernel. The warm-up run's
    chain segment (9,899 steps of the detected taxa): the kernel against
-   run_segment_plain on the card (rtol 1e-12), timed a step beside its
-   bound (f64_bound_ms) and its serial floor (the same steps at T = 1),
+   run_segment_plain on the card (rtol 1e-12, and the same accepted
+   steps, replayed from both proposals), timed a step beside its bound
+   (f64_bound_ms), its acceptance and the steps a round of its window,
+   and its serial floor (the same steps at T = 1, every step accepted),
    the plain version once, and one CUDA-graph capture of the plain
-   version's ops replayed (the library comparator, never on the path).
+   version's ops replayed (the library comparator, never on the path);
+   a high-acceptance chain of the same shape (4 / 3 / 2 reads) against
+   the plain version, timed; and the window sweep: the floor, the
+   segment and synthetic chains at T = 16 and 334 at every window the
+   kernel takes (1..8 consumer warps), bit-equal at each, timed a step
+   and a round.
    Then the reads mapped on the card and on the CPU
    (every table field equal), each gather_score_hash call of the card's
    mapping (euka's shapes: 64-row read bucket, its own window and row
@@ -176,8 +187,11 @@ class, with the library's grouped conv1d on the same pairs as
 library_ms, and the cluster size it ran at; then the mitogenome-length
 call's long pairs, ms and bound at its chosen cluster size and ms at
 each forced size), for the chain over the euka warm-up run's segment
-(library_ms: the CUDA-graph replay) and for the likelihood step at the
-HaploCart warm-up run's largest call (no library call computes it).
+(library_ms: the CUDA-graph replay; its window, acceptance, steps a
+round, the high-acceptance chain's time a step and the sweep's times by
+window) and for the likelihood step at the HaploCart warm-up run's
+largest call (no library call computes it; its device time and phase
+split).
 Every timing line names the card and its power limit. The
 second-to-last lines are the nvidia-smi line and one JSON object
 describing the kernels; the last line is
@@ -458,7 +472,8 @@ def phase_device():
 
 # ----------------------------------------------------------------- phase 2
 def phase_build():
-    """The six native libraries, their compilers all started together."""
+    """The six native libraries and the likelihood step's measurement
+    build, their compilers all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from vgan_tpu_torch import _native
@@ -467,7 +482,9 @@ def phase_build():
               ("tree_mcmc.cu", _native.tree_mcmc_lib),
               ("keelime.cu", _native.keelime_lib),
               ("abundance_mcmc.cu", _native.abundance_mcmc_lib),
-              ("haplocart.cu", _native.haplocart_lib))
+              ("haplocart.cu", _native.haplocart_lib),
+              ("haplocart.cu, phase clocks",
+               _native.haplocart_clocks_lib))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {name: pool.submit(build) for name, build in builds}
@@ -921,6 +938,42 @@ def _close_to_node_sums(label, c, pc, views, t, bep, consensus, rtol):
     return float(err.max()) if err.numel() else 0.0
 
 
+HC_PHASES = ("issue of the next tile's loads",
+             "table gathers (with the wait for the row's loads)",
+             "the S terms", "the atomic add")
+
+
+def hc_phase_split(views, t, bep, consensus, reps=5):
+    """node_scores through the measurement build (-DVGAN_HC_PHASE_CLOCKS,
+    _native.haplocart_clocks_lib): the main kernel's cycles in each phase
+    (HC_PHASES), summed over rows and `reps` calls: (shares, cycles a
+    row)."""
+    import ctypes
+
+    import torch
+
+    from vgan_tpu_torch import _native
+    from vgan_tpu_torch.pipelines import haplocart_device as hd
+
+    lib, kept = _native.haplocart_clocks_lib(), _native.haplocart_lib()
+    cycles = (ctypes.c_ulonglong * 4)()
+    _native._loaded["haplocart"] = lib
+    try:
+        hd.node_scores(views, t, bep, consensus)
+        torch.cuda.synchronize()
+        lib.hc_phase_clocks(cycles)  # clears the warm-up call's
+        for _ in range(reps):
+            hd.node_scores(views, t, bep, consensus)
+        torch.cuda.synchronize()
+        if lib.hc_phase_clocks(cycles) != 0:
+            raise RuntimeError("hc_phase_clocks failed")
+    finally:
+        _native._loaded["haplocart"] = kept
+    total = sum(cycles) or 1
+    rows = reps * int((views.take > 0).sum()) or 1
+    return ([x / total for x in cycles], [x / rows for x in cycles])
+
+
 def check_hc_calls(calls, map_score_s, smi):
     """Each score_packed call of a HaploCart run (`calls`: its arguments
     and final_vec): node_scores, one hc_node_scores_kernel launch on the
@@ -958,6 +1011,8 @@ def check_hc_calls(calls, map_score_s, smi):
                             reps=20))
         step["bound_ms"], step["bound_by"] = hc_bound_ms(buf, views, t,
                                                          cons)
+        step["phase_share"], step["phase_cycles_a_row"] = hc_phase_split(
+            views, t, bep, cons)
         whole_ms += step["call_ms"]
         dev_txt = ("not measured" if step["device_ms"] is None
                    else f"{step['device_ms']:.4f} ms")
@@ -967,6 +1022,12 @@ def check_hc_calls(calls, map_score_s, smi):
             f" on the device alone {dev_txt}), plain chain "
             f"{step['plain_ms']:.4f} ms, GEMV {step['gemv_ms']:.4f} ms, the "
             f"whole call {step['call_ms']:.4f} ms; on {smi}")
+        log(f"{label} phase split (clock64 in a measurement build, cycles "
+            f"summed over live rows): " + "; ".join(
+                f"{name} {100 * sh:.1f} % ({cyc:.0f} a row)"
+                for name, sh, cyc in zip(HC_PHASES, step["phase_share"],
+                                         step["phase_cycles_a_row"]))
+            + f"; on {smi}")
         step.update(M=M, S=S)
         rows.append(step)
     share = [whole_ms / 1e3 / s for s in map_score_s]
@@ -1259,15 +1320,99 @@ def compare_card_cpu(dev, euka_dir, d5, d3, fq, clock):
                 sw=sw_check), rc
 
 
+def same_accepts(label, args, props, plain_props):
+    """The steps the kernel's and the plain version's proposals accepted
+    (replayed, accepted_steps) must be the same; raises at the first that
+    differs, with |log u - (ll - cll)| there. Returns (steps, smallest
+    margin)."""
+    from vgan_tpu_torch.infer import abundance_mcmc as am
+
+    current, cur_ll, z, u, alpha, n_reads, const_ll = args
+    ks, km = am.accepted_steps(props, u, n_reads, const_ll, cur_ll)
+    ps, _pm = am.accepted_steps(plain_props, u, n_reads, const_ll, cur_ll)
+    if ks != ps:
+        s = min(set(ks) ^ set(ps))  # the first step decided otherwise
+        raise AssertionError(f"{label}: the kernel and the plain version "
+                             f"decide step {s} otherwise (|log u - (ll - "
+                             f"cll)| there {km[s]:.3g})")
+    return ks, float(km.min()) if len(km) else 0.0
+
+
+def synthetic_chain(dev, T, S, seed, high=False):
+    """run_segment's arguments of a chain over T taxa from START_LL:
+    hundreds to thousands of reads a taxon from the posterior's mode (few
+    steps accept), or with `high` 4 / 3 / 2 reads (T = 3) from a uniform
+    start (most do); noise from draw_noise(S, T, seed)."""
+    import numpy as np
+    import torch
+
+    from vgan_tpu_torch.infer import abundance_mcmc as am
+
+    if high:
+        n, init, const = np.array([4.0, 3.0, 2.0]), np.full(3, 1 / 3), -5.0
+    else:
+        n = np.random.default_rng(T).integers(100, 2000, size=T).astype(
+            np.float64)
+        init, const = n / n.sum(), -5.0 * T
+    z, u = am.draw_noise(S, len(n), seed)
+
+    def f(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64), device=dev)
+
+    return (f(init), f(am.START_LL), z.to(dev), u.to(dev), 0.1, f(n),
+            f(const))
+
+
+def window_sweep(chains, smi):
+    """Each chain (label: run_segment's arguments) at every window the
+    kernel can take (1..8 consumer warps): its outputs bit-equal at every
+    window, timed a step and a round (CUDA events, 3 launches)."""
+    import torch
+
+    from vgan_tpu_torch.infer import abundance_mcmc as am
+
+    out = {}
+    for label, args in chains.items():
+        S, T = args[2].shape
+        (s0, l0), p0 = am.run_segment(*args)
+        steps = am.accepted_steps(p0, args[3], args[5], args[6], args[1])[0]
+        rows = []
+        for w in range(1, 9):
+            (sw, lw), pw = am.run_segment(*args, warps=w)
+            if not (torch.equal(pw, p0) and torch.equal(sw, s0)
+                    and torch.equal(lw, l0)):
+                raise AssertionError(f"window sweep {label}: {w} warps "
+                                     "give other bits")
+            d = am.window(T, w)
+            ms = cuda_ms(lambda: am.run_segment(*args, warps=w), reps=3)
+            rounds = am.window_rounds(steps, S, d)
+            rows.append(dict(warps=w, d=d, rounds=rounds,
+                             us_a_step=1e3 * ms / S,
+                             us_a_round=1e3 * ms / rounds))
+        out[label] = dict(T=T, S=S, acceptance=len(steps) / S,
+                          default_d=am.window(T), by_warps=rows)
+        log(f"abundance chain window sweep, {label} (T={T}, S={S}, "
+            f"acceptance {len(steps) / S:.4f}, default window "
+            f"{am.window(T)}): " + "; ".join(
+                f"d={r['d']} {r['us_a_step']:.4f} us a step "
+                f"({r['rounds']} rounds, {r['us_a_round']:.3f} us a round)"
+                for r in rows) + f"; bit-equal at every window; on {smi}")
+    return out
+
+
 def check_chain_kernel(args, smi):
     """abundance_mcmc_segment_kernel against run_segment_plain on the card
     over a CLI run's own segment (`args`: run_segment's arguments there):
-    proposals, state and likelihood to rtol 1e-12. Timed by CUDA events:
-    the kernel a step beside its bound and the serial floor (the same
-    steps at T = 1), the plain version once, and as the library's
-    comparator one CUDA-graph capture of the plain version's torch ops
-    over the same steps, replayed (its proposals checked; never on the
-    path)."""
+    proposals, state and likelihood to rtol 1e-12, and the same accepted
+    steps (same_accepts). Timed by CUDA events: the kernel a step beside
+    its bound, its acceptance and the rounds of its window, the serial
+    floor (the same steps at T = 1, where every step accepts), the plain
+    version once, and as the library's comparator one CUDA-graph capture
+    of the plain version's torch ops over the same steps, replayed (its
+    proposals checked; never on the path). Then a high-acceptance chain
+    of the same shape (synthetic_chain) against the plain version and
+    timed, and window_sweep over the floor, the segment and synthetic
+    chains at T = 16 and 334."""
     import torch
 
     from vgan_tpu_torch.infer import abundance_mcmc as am
@@ -1279,6 +1424,9 @@ def check_chain_kernel(args, smi):
     max_err = max(_close("chain kernel proposals", kp, pp, 1e-12),
                   _close("chain kernel state", ks, ps, 1e-12),
                   _close("chain kernel likelihood", kl, pl, 1e-12))
+    steps, margin = same_accepts("chain kernel", args, kp, pp)
+    d = am.window(T)
+    rounds = am.window_rounds(steps, S, d)
     ms = cuda_ms(lambda: am.run_segment(*args), reps=5)
     floor = (torch.ones(1, dtype=current.dtype, device=current.device),
              cur_ll, z[:, :1].contiguous(), u, alpha, n_reads[:1], const_ll)
@@ -1297,15 +1445,45 @@ def check_chain_kernel(args, smi):
     bms, by = f64_bound_ms(S * (AM_F64_OPS_PER_TAXON * T
                                 + AM_F64_OPS_PER_STEP), 2 * S * T * 8)
     log(f"abundance chain kernel, the CLI run's segment (T={T}, S={S}): "
-        f"{ms:.3f} ms = {1e3 * ms / S:.3f} us a step ({100 * bms / ms:.2f} "
-        f"% of the {bms:.5f} ms bound, {by}); serial floor (T = 1) "
-        f"{1e3 * floor_ms / S:.3f} us a step; plain version {plain_ms:.1f} "
-        f"ms; its ops as one CUDA graph {graph_ms:.1f} ms a replay "
-        f"(captured in {capture_s:.1f} s); equal to plain (max abs err "
-        f"{max_err:.3g}); on {smi}")
+        f"{ms:.3f} ms = {1e3 * ms / S:.4f} us a step ({100 * bms / ms:.3f} "
+        f"% of the {bms:.5f} ms bound, {by}); acceptance {len(steps) / S:.4f}"
+        f" ({len(steps)} steps, the same as plain's; smallest |log u - "
+        f"(ll - cll)| {margin:.3g}), window {d}: {rounds} rounds, "
+        f"{S / rounds:.2f} steps a round, {1e3 * ms / rounds:.3f} us a "
+        f"round; serial floor (T = 1) {1e3 * floor_ms / S:.4f} us a step; "
+        f"plain version {plain_ms:.1f} ms; its ops as one CUDA graph "
+        f"{graph_ms:.1f} ms a replay (captured in {capture_s:.1f} s); equal "
+        f"to plain (max abs err {max_err:.3g}); on {smi}")
+    high = synthetic_chain(current.device, 3, S, seed=3, high=True)
+    (hs, hl), hp = am.run_segment(*high)
+    (hps, hpl), hpp = am.run_segment_plain(*high)
+    max_err = max(max_err,
+                  _close("chain kernel, high acceptance", hp, hpp, 1e-12),
+                  _close("chain kernel, high acceptance: state", hs, hps,
+                         1e-12),
+                  _close("chain kernel, high acceptance: likelihood", hl,
+                         hpl, 1e-12))
+    hsteps, _hm = same_accepts("chain kernel, high acceptance", high, hp,
+                               hpp)
+    high_ms = cuda_ms(lambda: am.run_segment(*high), reps=5)
+    hrounds = am.window_rounds(hsteps, S, d)
+    log(f"abundance chain kernel, high acceptance (4 / 3 / 2 reads, T=3, "
+        f"S={S}): {1e3 * high_ms / S:.4f} us a step; acceptance "
+        f"{len(hsteps) / S:.4f}, {S / hrounds:.2f} steps a round; equal to "
+        f"plain with the same accepted steps; on {smi}")
+    sweep = window_sweep({
+        "T = 1 (the floor)": floor, "the CLI run's segment": args,
+        "T = 16": synthetic_chain(current.device, 16, S, seed=16),
+        "T = 334": synthetic_chain(current.device, 334, S, seed=334)}, smi)
     return dict(T=T, S=S, ms=ms, us_a_step=1e3 * ms / S, floor_ms=floor_ms,
                 plain_ms=plain_ms, graph_ms=graph_ms, capture_s=capture_s,
-                bound_ms=bms, bound_by=by, max_abs_err=max_err)
+                bound_ms=bms, bound_by=by, max_abs_err=max_err, window=d,
+                acceptance=len(steps) / S, steps_a_round=S / rounds,
+                smallest_margin=margin,
+                high=dict(us_a_step=1e3 * high_ms / S,
+                          acceptance=len(hsteps) / S,
+                          steps_a_round=S / hrounds),
+                sweep=sweep)
 
 
 def phase_euka(dev, out_dir, clock):
@@ -2521,6 +2699,13 @@ def main() -> int:
         "steps": t_am["S"],
         "taxa": t_am["T"],
         "floor_ms": t_am["floor_ms"],
+        "window": t_am["window"],
+        "acceptance": t_am["acceptance"],
+        "steps_a_round": t_am["steps_a_round"],
+        "high_acceptance_us_a_step": t_am["high"]["us_a_step"],
+        "us_a_step_by_window": {
+            label: {str(r["d"]): r["us_a_step"] for r in sw["by_warps"]}
+            for label, sw in t_am["sweep"].items()},
     }, {
         "name": "hc_node_scores_kernel",
         "route": "cuda",
@@ -2539,6 +2724,8 @@ def main() -> int:
         "M": t_hc["M"],
         "S": t_hc["S"],
         "call_ms": t_hc["call_ms"],
+        "device_ms": t_hc["device_ms"],
+        "phase_share": dict(zip(HC_PHASES, t_hc["phase_share"])),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -357,6 +357,78 @@ def test_abundance_checkpointed_segments_equal_one_segment(dev, tmp_path):
     np.testing.assert_array_equal(seg.samples, one.samples)
 
 
+def _window_chain(dev, T, S, kind, seed):
+    """A `low`-acceptance chain (thousands of reads a taxon, started at
+    the posterior's mode) or a `high` one (a handful of reads a taxon)."""
+    rng = np.random.default_rng(seed)
+    if kind == "low":
+        n = rng.integers(2000, 8000, size=T).astype(np.float64)
+        return _chain(dev, T, S, seed, n=n, init=n / n.sum(), const=-5.0 * T)
+    n = rng.integers(0, 5, size=T).astype(np.float64)
+    return _chain(dev, T, S, seed, n=n, init=np.full(T, 1.0 / T),
+                  const=-5.0 * T)
+
+
+def _accepts(args, props):
+    from vgan_tpu_torch.infer import abundance_mcmc as am
+
+    return am.accepted_steps(props, args[3], args[5], args[6], args[1])[0]
+
+
+@pytest.mark.parametrize("kind", ["low", "high"])
+@pytest.mark.parametrize("S", [1, 31, 33, 9899])
+@pytest.mark.parametrize("T", [1, 2, 3, 8, 9, 33, 334, 1024])
+def test_abundance_window_kernel_equals_plain(dev, T, S, kind):
+    """The window kernel at its own choice of window against
+    run_segment_plain (rtol 1e-12, _kernel_vs_plain), with the same
+    accepted steps, on low- and high-acceptance chains."""
+    args = _window_chain(dev, T, S, kind, seed=T + S)
+    (_carry, props), (_pcarry, pprops) = _kernel_vs_plain(args)
+    assert _accepts(args, props) == _accepts(args, pprops)
+
+
+@pytest.mark.parametrize("kind", ["low", "high"])
+@pytest.mark.parametrize("T", [1, 3, 16, 334])
+def test_abundance_window_kernel_every_warps_same_bits(dev, T, kind):
+    """Every window the kernel can take (1..8 consumer warps) gives the
+    same bits: a step's arithmetic depends only on the state and its own
+    noise."""
+    from vgan_tpu_torch.infer import abundance_mcmc as am
+
+    args = _window_chain(dev, T, 2000, kind, seed=T)
+    (s0, l0), p0 = am.run_segment(*args)
+    for w in range(1, 9):
+        (s, ll), p = am.run_segment(*args, warps=w)
+        assert torch.equal(p, p0) and torch.equal(s, s0)
+        assert torch.equal(ll, l0)
+    with pytest.raises(ValueError):
+        am.run_segment(*args, warps=9)
+
+
+@pytest.mark.parametrize("warps", [0, 1, 3, 8])
+@pytest.mark.parametrize("T", [3, 33])
+def test_abundance_segments_ending_mid_window_equal_one_segment(dev, T,
+                                                                warps):
+    """Segments whose ends fall inside the kernel's windows (cut at
+    d / 2 + 1, d + 3, 3 d + 1 ...), the carry passed on as the
+    checkpointed runner passes it, give the one-launch run's bits."""
+    from vgan_tpu_torch.infer import abundance_mcmc as am
+
+    current, cur_ll, z, u, alpha, n, const = _window_chain(dev, T, 3000,
+                                                           "low", seed=4)
+    d = am.window(T, warps)
+    (ws, wl), whole = am.run_segment(current, cur_ll, z, u, alpha, n, const,
+                                     warps=warps)
+    cuts = sorted({0, d // 2 + 1, d + 3, 3 * d + 1, 7 * d + 5, 1001, 3000})
+    carry, parts = (current, cur_ll), []
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        carry, part = am.run_segment(*carry, z[a:b], u[a:b], alpha, n, const,
+                                     warps=warps)
+        parts.append(part)
+    assert torch.equal(torch.cat(parts), whole)
+    assert torch.equal(carry[0], ws) and torch.equal(carry[1], wl)
+
+
 # -------------------------------------------- HaploCart likelihood kernel
 def _card_packed(dev, M, S, seed):
     """pack_batch's buffer built on the card: random rows with codes >= 4,
@@ -439,6 +511,88 @@ def test_hc_node_scores_kernel_equals_plain(dev, M, S, consensus, form):
     assert torch.equal(c[~finite], pc[~finite])
     assert bool(((c - pc).abs()[finite] <= 1e-12 * mag[finite]).all())
     torch.testing.assert_close(total_b, pb, rtol=1e-12, atol=0)
+
+
+def _assert_node_scores(views, batch, t, consensus):
+    """node_scores on `batch` (the views or their HcBatch) against
+    node_scores_plain: c to 1e-12 of each node's sum of |A - b|, sum(b)
+    to rtol 1e-12."""
+    from vgan_tpu_torch.pipelines import haplocart_device as hd
+
+    hd.reset_launches()
+    c, total_b = hd.node_scores(batch, t, 1e-4, consensus)
+    torch.cuda.synchronize()
+    assert hd.LAUNCHES["hc_node_scores"] == 1
+    pc, pb = hd.node_scores_plain(batch, t, 1e-4, consensus)
+    plain = hd.packed_batch(views, consensus)
+    d = hd.mapping_scores(plain, t, 1e-4, consensus) - plain.b
+    node = plain.node.long()
+    keep = (node >= 0) & (node < pc.shape[0])
+    mag = torch.zeros_like(pc).index_add_(0, node[keep], d[keep].abs())
+    finite = torch.isfinite(pc)
+    assert torch.equal(finite, torch.isfinite(c))
+    assert torch.equal(c[~finite], pc[~finite])
+    assert bool(((c - pc).abs()[finite] <= 1e-12 * mag[finite]).all())
+    torch.testing.assert_close(total_b, pb, rtol=1e-12, atol=0)
+    return c
+
+
+@pytest.mark.parametrize("S", [8, 5])
+@pytest.mark.parametrize("offset", list(range(16)))
+def test_hc_node_scores_kernel_every_buffer_offset(dev, offset, S):
+    """unpack's code views at every byte offset they can take mod 16:
+    the buffer at a 16- or 8-byte boundary and M = 16,384 + 2 k rows
+    (unpack's int32 and f64 views need both: an 8-byte boundary and an
+    even M), so that with S = 5 the r and q columns (at M S and 2 M S)
+    and mq and use_bep start at every even offset; both modes, packed
+    views and their HcBatch."""
+    from vgan_tpu_torch.pipelines import haplocart_device as hd
+
+    M = 16384 + 2 * (offset // 2)
+    t = hd.make_tables(np.ones((HC_NODES, 16)), dev)
+    raw = _card_packed(dev, M, S, seed=offset + S)
+    base = 8 * (offset % 2)
+    buf = torch.empty(raw.numel() + 16, dtype=torch.uint8,
+                      device=dev)[base:base + raw.numel()]
+    buf.copy_(raw)
+    views = hd.unpack(buf, M, S)
+    assert views.g.data_ptr() % 16 == base
+    assert views.r.data_ptr() % 16 == (base + M * S) % 16
+    for consensus in (False, True):
+        _assert_node_scores(views, views, t, consensus)
+        _assert_node_scores(views, hd.packed_batch(views, consensus), t,
+                            consensus)
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled", "single_hot",
+                                   "out_of_range"])
+def test_hc_node_scores_kernel_node_orders(dev, order):
+    """Node ids sorted (runs of one node), shuffled, all one node (every
+    row's atomic on one address) and all outside [0, n_nodes) (c stays
+    0), at HaploCart's flush shape (M = 65,536, S = 8)."""
+    from vgan_tpu_torch.pipelines import haplocart_device as hd
+
+    M, S = 65536, 8
+    t = hd.make_tables(np.ones((HC_NODES, 16)), dev)
+    buf = _card_packed(dev, M, S, seed=11)
+    views = hd.unpack(buf, M, S)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    if order == "sorted":
+        ids = torch.sort(views.node).values
+    elif order == "shuffled":
+        ids = views.node[torch.randperm(M, generator=gen, device=dev)]
+    elif order == "single_hot":
+        ids = torch.full((M,), 17, dtype=torch.int32, device=dev)
+    else:
+        ids = torch.randint(HC_NODES, 2 * HC_NODES, (M,), generator=gen,
+                            device=dev).to(torch.int32)
+        ids[::2] = -ids[::2]
+    views.node.copy_(ids)
+    c = _assert_node_scores(views, views, t, False)
+    if order == "out_of_range":
+        assert not bool(c.any())
+    if order == "single_hot":
+        assert int((c != 0).sum()) == 1
 
 
 def test_hc_final_vec_run_to_run(dev):

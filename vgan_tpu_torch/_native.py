@@ -220,6 +220,10 @@ ABUNDANCE_MCMC_ARGTYPES = [
     _VP,                       # stream
 ]
 """The argument types of abundance_mcmc_segment_launch."""
+ABUNDANCE_MCMC_WARPS_ARGTYPES = (ABUNDANCE_MCMC_ARGTYPES[:-1]
+                                 + [_I32]  # consumer warps (0: its choice)
+                                 + ABUNDANCE_MCMC_ARGTYPES[-1:])
+"""The argument types of abundance_mcmc_segment_launch_warps."""
 HC_NODE_SCORES_ARGTYPES = [
     _I32,                      # code bytes: 1 (uint8) or 4 (int32)
     _VP, _VP, _VP, _VP,        # g, r, q [M, S], mq [M]
@@ -250,9 +254,37 @@ def _typed_lib(key: str, name: str, src: str, fn: str,
 def abundance_mcmc_lib() -> ctypes.CDLL:
     """The CUDA abundance-chain kernel (csrc/abundance_mcmc.cu), built with
     nvcc for sm_90a on first use, with its C entry point typed."""
-    return _typed_lib("abundance_mcmc", "vgan_abundance_mcmc",
-                      ABUNDANCE_MCMC_SRC, "abundance_mcmc_segment_launch",
-                      ABUNDANCE_MCMC_ARGTYPES)
+    lib = _loaded.get("abundance_mcmc")
+    if lib is None:
+        lib = _typed_lib("abundance_mcmc", "vgan_abundance_mcmc",
+                         ABUNDANCE_MCMC_SRC, "abundance_mcmc_segment_launch",
+                         ABUNDANCE_MCMC_ARGTYPES)
+        lib.abundance_mcmc_segment_launch_warps.restype = _I32
+        lib.abundance_mcmc_segment_launch_warps.argtypes = (
+            ABUNDANCE_MCMC_WARPS_ARGTYPES)
+        lib.abundance_mcmc_window.restype = _I32
+        lib.abundance_mcmc_window.argtypes = [_I32, _I32]  # T, warps
+    return lib
+
+
+def haplocart_clocks_lib() -> ctypes.CDLL:
+    """csrc/haplocart.cu built for measurement only, with
+    -DVGAN_HC_PHASE_CLOCKS: the same entry point typed, and
+    hc_phase_clocks, which reads and clears the main kernel's cycles in
+    each phase summed over rows."""
+    lib = _loaded.get("haplocart_clocks")
+    if lib is None:
+        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        nvcc = _find_tool("nvcc", [os.path.join(cuda_home, "bin", "nvcc")])
+        lib = ctypes.CDLL(_build("vgan_haplocart_clocks", nvcc,
+                                 NVCC_FLAGS + ["-DVGAN_HC_PHASE_CLOCKS"],
+                                 [HAPLOCART_SRC], []))
+        lib.hc_node_scores_launch.restype = _I32
+        lib.hc_node_scores_launch.argtypes = HC_NODE_SCORES_ARGTYPES
+        lib.hc_phase_clocks.restype = _I32
+        lib.hc_phase_clocks.argtypes = [_VP]  # out: unsigned long long [4]
+        _loaded["haplocart_clocks"] = lib
+    return lib
 
 
 def haplocart_lib() -> ctypes.CDLL:

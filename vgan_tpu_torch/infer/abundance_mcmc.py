@@ -34,9 +34,11 @@ Everything is f64 (the JAX package's f32-on-TPU rule was a TPU
 compiler workaround and is not carried over).
 
 A segment of the chain is `run_segment`: on the card one launch of
-abundance_mcmc_segment_kernel (csrc/abundance_mcmc.cu, one warp for the
-whole segment), where the JAX package runs one lax.scan program; on the
-CPU its plain version `run_segment_plain`, a Python loop of torch ops.
+abundance_mcmc_segment_kernel (csrc/abundance_mcmc.cu: rounds that
+evaluate a window of proposals from one state at once, exact to the
+sequential chain), where the JAX package runs one lax.scan program; on
+the CPU its plain version `run_segment_plain`, a Python loop of torch
+ops.
 """
 from __future__ import annotations
 
@@ -105,11 +107,14 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def run_segment(current, cur_ll, z, u, alpha, n_reads, const_ll):
+def run_segment(current, cur_ll, z, u, alpha, n_reads, const_ll, *,
+                warps: int = 0):
     """S Metropolis-Hastings steps (see run_segment_plain). CPU tensors
     run the plain version. CUDA tensors launch
     abundance_mcmc_segment_kernel (csrc/abundance_mcmc.cu) once, on
-    copies of the carry, or raise."""
+    copies of the carry, or raise. `warps` (1..8) sets the kernel's
+    consumer warps, hence its window of proposals; 0 leaves the choice
+    to the kernel. Every choice gives the same bits."""
     dev = z.device
     if dev.type == "cpu":
         return run_segment_plain(current, cur_ll, z, u, alpha, n_reads,
@@ -128,6 +133,9 @@ def run_segment(current, cur_ll, z, u, alpha, n_reads, const_ll):
     if not 1 <= T <= 1024:
         raise ValueError(f"abundance_mcmc: {T} taxa (the kernel takes "
                          "1..1,024)")
+    if not 0 <= warps <= 8:
+        raise ValueError(f"abundance_mcmc: {warps} warps (the kernel takes "
+                         "1..8, or 0 for its own choice)")
     const_ll = torch.as_tensor(const_ll, dtype=F64, device=dev)
     ins = [current, cur_ll, z, u, n_reads, const_ll]
     if any(x.device != dev for x in ins):
@@ -141,16 +149,73 @@ def run_segment(current, cur_ll, z, u, alpha, n_reads, const_ll):
         lib = abundance_mcmc_lib()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.abundance_mcmc_segment_launch(
-                _ptr(state), _ptr(ll), _ptr(z_c), _ptr(u_c), _ptr(n_c),
-                _ptr(k_c), float(alpha), T, S, _ptr(out),
-                ctypes.c_void_p(stream))
+            args = (_ptr(state), _ptr(ll), _ptr(z_c), _ptr(u_c), _ptr(n_c),
+                    _ptr(k_c), float(alpha), T, S, _ptr(out))
+            # the kernel's own choice through the entry point every build
+            # of csrc/abundance_mcmc.cu has (abundance_ab swaps builds)
+            rc = (lib.abundance_mcmc_segment_launch_warps(
+                      *args, warps, ctypes.c_void_p(stream)) if warps else
+                  lib.abundance_mcmc_segment_launch(
+                      *args, ctypes.c_void_p(stream)))
         if rc != 0:
             raise RuntimeError(
                 f"abundance_mcmc_segment kernel launch failed: CUDA error "
                 f"{rc}")
         LAUNCHES["abundance_mcmc_segment"] += 1
     return (state, ll), out
+
+
+def window(T: int, warps: int = 0) -> int:
+    """Proposals a round of abundance_mcmc_segment_kernel evaluates from
+    one state, for T taxa and `warps` consumer warps (0: its choice)."""
+    from .._native import abundance_mcmc_lib
+
+    d = abundance_mcmc_lib().abundance_mcmc_window(T, warps)
+    if d < 1:
+        raise ValueError(f"abundance_mcmc: no window for T={T}, "
+                         f"warps={warps}")
+    return d
+
+
+def accepted_steps(proposals, u, n_reads, const_ll, cur_ll):
+    """The steps of a segment that accepted, replayed on the host from
+    its recorded proposals [S, T] and uniforms u [S] from the
+    likelihood cur_ll at its start (each proposal's log-likelihood
+    recomputed in f64). Returns (steps, margins): margins [S] is
+    |log u - (ll - cur_ll)| at each step, how far its decision was from
+    flipping."""
+    props = proposals.detach().to("cpu", F64)
+    n = torch.as_tensor(n_reads).to("cpu", F64)
+    ll = ((n * torch.log(props)).sum(1)
+          + float(torch.as_tensor(const_ll))).numpy()
+    logu = np.log(u.detach().to("cpu", F64).numpy())
+    cll = float(torch.as_tensor(cur_ll))
+    steps, margins = [], np.empty(len(ll))
+    with np.errstate(invalid="ignore", over="ignore"):
+        for s, x in enumerate(ll):
+            d = x - cll
+            margins[s] = abs(logu[s] - d)
+            if d == d and logu[s] <= min(0.0, d):  # NaN rejects
+                steps.append(s)
+                cll = x
+    return steps, margins
+
+
+def window_rounds(steps, S: int, d: int) -> int:
+    """Rounds of d proposals the kernel takes for an S-step segment whose
+    accepted steps are `steps` (sorted): a round ends at its first
+    accept, or after d steps."""
+    acc = iter(steps)
+    nxt = next(acc, S)
+    s0 = rounds = 0
+    while s0 < S:
+        rounds += 1
+        if nxt < s0 + d:
+            s0 = nxt + 1
+            nxt = next(acc, S)
+        else:
+            s0 += d
+    return rounds
 
 
 def _summarize(samples: np.ndarray) -> AbundanceResult:

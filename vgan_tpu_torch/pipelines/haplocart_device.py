@@ -267,23 +267,26 @@ def node_scores(batch, t: HcTables, bep, consensus: bool):
     tabs = [x.to(F64).contiguous() for x in (t.qtab, t.imtab, t.match_tab,
                                              t.mapp_tab, t.bg)]
     n_nodes = t.support.shape[0]
-    c = torch.zeros(n_nodes, dtype=F64, device=dev)
-    total_b = torch.zeros((), dtype=F64, device=dev)
-    if M:
-        lib = haplocart_lib()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.hc_node_scores_launch(
-                codes[0].element_size(), *[_ptr(x) for x in codes],
-                _ptr(use_bep), _ptr(take), _ptr(valid), _ptr(i32[0]),
-                _ptr(i32[1]), _ptr(b),
-                *[a for x in tabs for a in (_ptr(x), x.shape[0])],
-                float(bep), int(bool(consensus)), M, S, n_nodes, _ptr(c),
-                _ptr(total_b), ctypes.c_void_p(stream))
-        if rc != 0:
-            raise RuntimeError(
-                f"hc_node_scores kernel launch failed: CUDA error {rc}")
-        LAUNCHES["hc_node_scores"] += 1
+    if not M:
+        return (torch.zeros(n_nodes, dtype=F64, device=dev),
+                torch.zeros((), dtype=F64, device=dev))
+    # written whole by the launch, which zeroes them first
+    c = torch.empty(n_nodes, dtype=F64, device=dev)
+    total_b = torch.empty((), dtype=F64, device=dev)
+    lib = haplocart_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.hc_node_scores_launch(
+            codes[0].element_size(), *[_ptr(x) for x in codes],
+            _ptr(use_bep), _ptr(take), _ptr(valid), _ptr(i32[0]),
+            _ptr(i32[1]), _ptr(b),
+            *[a for x in tabs for a in (_ptr(x), x.shape[0])],
+            float(bep), int(bool(consensus)), M, S, n_nodes, _ptr(c),
+            _ptr(total_b), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(
+            f"hc_node_scores kernel launch failed: CUDA error {rc}")
+    LAUNCHES["hc_node_scores"] += 1
     return c, total_b
 
 
