@@ -88,9 +88,11 @@ and prints no result):
    and on the device alone beside its bound (euka_work: the f64
    instructions the function needs for the call's valid columns by
    class, against its bytes), the plain version and its ops as one CUDA graph replayed (the
-   library comparator, never on the path), the calls' share of
-   map+score logged; then a synthetic 1,000-bp batch (B = 2,048,
-   L = 1,024) the same way.
+   library comparator, never on the path), the kernel's own paths on the
+   device alone (damage tables through L1, scalar code loads; the same
+   bits), its launch shape and occupancy, and a clock64 phase split from
+   the measurement build; the calls' share of map+score logged; then a
+   synthetic 1,000-bp batch (B = 2,048, L = 1,024) the same way.
    Then the reads mapped on the card and on the CPU
    (every table field equal), each gather_score_hash call of the card's
    mapping (euka's shapes: 64-row read bucket, its own window and row
@@ -205,8 +207,9 @@ round, the high-acceptance chain's time a step and the sweep's times by
 window) and for the likelihood step at the HaploCart warm-up run's
 largest call (no library call computes it; its device time and phase
 split), for euka's scorer at the euka warm-up run's largest call
-(library_ms: the CUDA-graph replay; the other call's ms and the 1,000-bp
-batch's numbers beside it).
+(library_ms: the CUDA-graph replay; the other call's ms, the launch
+shape, the paths' device times, the phase split and the 1,000-bp batch's
+numbers beside it).
 Every timing line names the card and its power limit. The
 second-to-last lines are the nvidia-smi line and one JSON object
 describing the kernels; the last line is
@@ -333,6 +336,9 @@ EUKA_SOURCE = "vgan_tpu_torch/csrc/euka.cu"
 EUKA_REPLACES = "vgan_tpu/pipelines/euka.py:111"  # _score_batch_impl
 EUKA_OPS_ACGT, EUKA_OPS_SOFT_THIRD, EUKA_OPS_SOFT_OTHER = 72, 32, 40
 EUKA_OPS_OTHER, EUKA_OPS_ROW = 2, 31
+# euka_score_launch_opts' paths (csrc/euka.cu): the tables through L1,
+# scalar code loads
+EUKA_OPT_L1_TABLES, EUKA_OPT_SCALAR_LOADS = 1, 2
 # the scorer at a synthetic 1,000-bp read batch: rows, the column bucket
 EUKA_LONG_B, EUKA_LONG_L = 2048, 1024
 
@@ -516,7 +522,8 @@ def phase_build():
               ("haplocart.cu", _native.haplocart_lib),
               ("euka.cu", _native.euka_lib),
               ("haplocart.cu, phase clocks",
-               _native.haplocart_clocks_lib))
+               _native.haplocart_clocks_lib),
+              ("euka.cu, phase clocks", _native.euka_clocks_lib))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {name: pool.submit(build) for name, build in builds}
@@ -1605,14 +1612,95 @@ def time_euka_call(label, args, got, smi):
     dev_txt = ("device time not measured" if dev_ms is None else
                f"on the device alone {dev_ms:.4f} ms = "
                f"{100 * bms / dev_ms:.1f} %")
+    # the kernel's own paths on the device alone: the damage tables through
+    # L1 in every CTA (no staging), scalar code loads (no 16-byte loads)
+    paths = {}
+    for name, opts in (("l1_tables", EUKA_OPT_L1_TABLES),
+                       ("scalar_loads", EUKA_OPT_SCALAR_LOADS)):
+        other = ek.score_batch(*args, opts=opts)
+        _close(f"{label} {name}", other, got, 0.0)
+        paths[name] = queued_ms(lambda: ek.score_batch(*args, opts=opts), 20)
+    cfg = euka_config(B, L)
+    split = euka_phase_split(args)
     log(f"{label} (B={B}, L={L}, valid columns {cols}): kernel {ms:.4f} ms "
         f"a call ({100 * bms / ms:.2f} % of the {bms:.5f} ms bound, {by}; "
         f"{dev_txt}), plain {plain:.3f} ms, its ops as one CUDA graph "
         f"{graph_ms:.3f} ms a replay; equal to plain (max abs err "
-        f"{err:.3g}); on {smi}")
+        f"{err:.3g}); on the device alone with the tables through L1 "
+        f"{_ms_txt(paths['l1_tables'])}, with scalar loads "
+        f"{_ms_txt(paths['scalar_loads'])} (the same bits); launch "
+        f"{json.dumps(cfg)}; clock64 phase split (measurement build) "
+        f"{json.dumps(split)}; on {smi}")
     return dict(B=B, L=L, ms=ms, device_ms=dev_ms, plain_ms=plain,
                 graph_ms=graph_ms, bound_ms=bms, bound_by=by,
-                max_abs_err=err, columns=cols)
+                max_abs_err=err, columns=cols, paths_device_ms=paths,
+                config=cfg, phase_split=split)
+
+
+# euka_score_kernel's clock64 phases (csrc/euka.cu g_euka_clocks): a CTA's,
+# then an item's of a warp
+EUKA_CTA_PHASES = ("codes_and_range", "range_reduce", "staging", "items",
+                   "cluster_wait")
+EUKA_ITEM_PHASES = ("codes_wait_and_classes", "tables_math_logs",
+                    "row_sum_and_next_loads")
+
+
+def euka_phase_split(args, reps=10):
+    """Mean cycles a CTA and a warp's item in each phase of
+    euka_score_kernel on `args`, from the measurement build
+    (_native.euka_clocks_lib, -DVGAN_EUKA_PHASE_CLOCKS) called through
+    score_batch `reps` times; and the share of CTAs that staged their
+    table rows."""
+    import ctypes
+
+    import torch
+
+    from vgan_tpu_torch import _native
+    from vgan_tpu_torch.pipelines import euka as ek
+
+    lib, ours = _native.euka_clocks_lib(), _native.euka_lib()
+    out = (ctypes.c_ulonglong * 19)()
+    _native._loaded["euka"] = lib
+    try:
+        torch.cuda.synchronize()
+        lib.euka_phase_clocks(out)  # clear
+        for _ in range(reps):
+            ek.score_batch(*args)
+        torch.cuda.synchronize()
+        if lib.euka_phase_clocks(out) != 0:
+            raise AssertionError("euka_phase_clocks failed")
+    finally:
+        _native._loaded["euka"] = ours
+    v = list(out)
+    ctas, items = max(v[8], 1), max(v[9], 1)
+    nc = euka_config(args[0].shape[0], args[0].shape[1])["nc"]
+    return dict(cta_cycles={k: round(v[i] / ctas)
+                            for i, k in enumerate(EUKA_CTA_PHASES)},
+                item_cycles={k: round(v[5 + i] / items)
+                             for i, k in enumerate(EUKA_ITEM_PHASES)},
+                items_cycles_by_rank=[round(v[11 + k] * nc / ctas)
+                                      for k in range(nc)],
+                staged_share=v[10] / ctas)
+
+
+def _ms_txt(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def euka_config(B, L):
+    """euka_score_kernel's launch for B rows of L columns and its
+    occupancy on this card (csrc/euka.cu euka_score_config)."""
+    import ctypes
+
+    from vgan_tpu_torch import _native
+
+    out = (ctypes.c_int * 11)()
+    rc = _native.euka_lib().euka_score_config(B, L, 0, out)
+    if rc != 0:
+        raise AssertionError(f"euka_score_config: CUDA error {rc}")
+    return dict(zip(("G", "nc", "S", "P", "rows_a_cta", "ctas",
+                     "ctas_an_sm", "registers", "spill_bytes",
+                     "shared_bytes", "staged_rows"), list(out)))
 
 
 def check_euka_scorer(calls, map_score_s, smi):
@@ -2947,10 +3035,14 @@ def main() -> int:
         "L": t_eu["L"],
         "device_ms": t_eu["device_ms"],
         "calls_ms": [c["ms"] for c in eu["scorer"]["calls"]],
+        "calls_device_ms": [c["device_ms"] for c in eu["scorer"]["calls"]],
         "share_of_map_score": eu["scorer"]["share_of_map_score"],
+        "config": t_eu["config"],
+        "paths_device_ms": t_eu["paths_device_ms"],
+        "phase_split": t_eu["phase_split"],
         "long_1000bp": {k: eu["scorer"]["long"][k] for k in (
             "B", "L", "ms", "device_ms", "plain_ms", "graph_ms", "bound_ms",
-            "bound_by")},
+            "bound_by", "config", "paths_device_ms", "phase_split")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

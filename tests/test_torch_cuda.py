@@ -358,7 +358,7 @@ def test_euka_score_kernel_row_bits_same_in_any_batch(dev):
         assert torch.equal(g[torch.from_numpy(where)], b)
 
 
-@pytest.mark.parametrize("opt", ["-O0", "-O1", "-O2"])
+@pytest.mark.parametrize("opt", ["-O0", "-O1", "-O2", "-O3"])
 def test_euka_score_kernel_same_at_every_ptxas_level(dev, monkeypatch, opt):
     """csrc/euka.cu built with ptxas at another optimisation level than
     the library's (-O3): on every case equal to the plain version and to
@@ -373,11 +373,9 @@ def test_euka_score_kernel_same_at_every_ptxas_level(dev, monkeypatch, opt):
     want = {k: _euka_kernel_vs_plain(dev, *v) for k, v in cases.items()}
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
-    lib = ctypes.CDLL(_native._build(
+    lib = _native.type_euka(ctypes.CDLL(_native._build(
         f"vgan_euka_ptxas{opt}", _native._find_tool("nvcc", [nvcc]),
-        _native.NVCC_FLAGS + ["-Xptxas", opt], [_native.EUKA_SRC], []))
-    lib.euka_score_launch.restype = ctypes.c_int
-    lib.euka_score_launch.argtypes = _native.EUKA_SCORE_ARGTYPES
+        _native.NVCC_FLAGS + ["-Xptxas", opt], [_native.EUKA_SRC], [])))
     monkeypatch.setitem(_native._loaded, "euka", lib)
     assert _native.euka_lib() is lib
     for k, v in cases.items():
@@ -385,6 +383,118 @@ def test_euka_score_kernel_same_at_every_ptxas_level(dev, monkeypatch, opt):
         for g, w in zip(got, want[k]):
             torch.testing.assert_close(g, w, rtol=1e-12, atol=0,
                                        equal_nan=True)
+
+
+# euka_score_launch_opts: the tables through L1 in every CTA, scalar code
+# loads, both, and 1, 2, 4 passes a CTA (the results must not change)
+EUKA_OPTS = (1, 2, 3, 1 << 8, 2 << 8, 4 << 8, 1 | 2 << 8)
+
+
+@pytest.mark.parametrize("case", EUKA_CASES)
+def test_euka_score_kernel_every_path_same_bits(dev, case):
+    """Each case through every path of the kernel (staged or L1 tables,
+    16-byte or scalar loads, the passes a CTA): the bits of the default
+    path, which equals the plain version."""
+    from vgan_tpu_torch.pipelines import euka as ek
+
+    arrays, tables = _euka_cases()[case]
+    want = _euka_kernel_vs_plain(dev, arrays, tables)
+    rows, consts = _euka_on(arrays, tables, dev)
+    for opts in EUKA_OPTS:
+        got = ek.score_batch(*rows, *consts, opts=opts).cpu()
+        for g, w in zip(got, want):
+            assert torch.equal(g.isnan(), w.isnan()), opts
+            assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w)), opts
+
+
+def _euka_long_case(rng, B, L):
+    """_torch_world's scorer rows of B x L with softclip runs and invalid
+    stretches, and random damage tables."""
+    import _torch_world as world
+    from vgan_tpu_torch.pipelines import euka as ek
+
+    d = world._euka_rows(rng, B, L)
+    if L > 8:
+        d["r"][::3, L // 8:L // 2] = 6
+        d["valid"][1::3, L // 4:(3 * L) // 4] = False
+    return world._euka_case(d, world.euka_damage_tables(rng) + [
+        ek.phred.qscore_vec(), ek.BASE_FREQ_LOG, ek.T_T_RATIO])
+
+
+@pytest.mark.parametrize("L", [64, 1024])
+def test_euka_score_kernel_row_same_bits_alone_and_anywhere_in_4096(dev, L):
+    """One row alone, and at the start, in the middle and at the end of a
+    B = 4,096 batch: the same bits each time (the batch against plain)."""
+    rng = np.random.default_rng(L)
+    arrays, tables = _euka_long_case(rng, 4096, L)
+    one = tuple(a[:1] for a in arrays)
+    alone = _euka_kernel_vs_plain(dev, one, tables)
+    for pos in (0, 2048, 4095):
+        batch = tuple(np.ascontiguousarray(np.concatenate(
+            [a[1:pos + 1], a[:1], a[pos + 1:]])) for a in arrays)
+        got = _euka_kernel_vs_plain(dev, batch, tables)
+        for g, w in zip(got, alone):
+            assert torch.equal(g[pos:pos + 1], w), pos
+
+
+def _unaligned(a, d):
+    """a on the card as a contiguous tensor whose data starts one element
+    past a 16-byte boundary."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=d)
+    out = buf[1:1 + t.numel()].view(a.shape)
+    out.copy_(t.to(d))
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("L", [1, 3, 77, 1023, 1025, 2100])
+def test_euka_score_kernel_odd_and_unaligned_rows(dev, L):
+    """Odd L and rows whose tensors start off a 16-byte boundary, with and
+    without the 16-byte path (forced off, or taken where L % 4 == 0 and
+    the tensors are aligned): equal to plain, the same bits each way."""
+    from vgan_tpu_torch.pipelines import euka as ek
+
+    rng = np.random.default_rng(L + 5)
+    arrays, tables = _euka_long_case(rng, 37, L)
+    want = _euka_kernel_vs_plain(dev, arrays, tables)
+    rows, consts = _euka_on(arrays, tables, dev)
+    shifted = [_unaligned(a, dev) if a.ndim == 2 else r
+               for a, r in zip(arrays, rows)]
+    for args, opts in ((rows, 2), (shifted, 0), (shifted, 2)):
+        got = ek.score_batch(*args, *consts, opts=opts).cpu()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), opts
+
+
+def test_euka_score_kernel_65536_rows(dev):
+    """B = 65,536 x L = 64 (many waves of CTAs) against plain."""
+    rng = np.random.default_rng(65536)
+    arrays, tables = _euka_long_case(rng, 65536, 64)
+    il, nl = _euka_kernel_vs_plain(dev, arrays, tables)
+    assert il.shape == (65536,) and torch.isfinite(il).all()
+
+
+def test_euka_score_config_registers_and_occupancy(dev):
+    """The launch shape at euka's calls and at the 1,000-bp batch, the
+    kernel's registers a thread, its spill bytes and its CTAs an SM
+    (printed; pytest -s): at least two CTAs an SM, every row's columns
+    covered, the staged rows a multiple of 4."""
+    import ctypes
+
+    from vgan_tpu_torch import _native
+
+    lib = _native.euka_lib()
+    for B, L in ((4096, 64), (2048, 1024), (65536, 64)):
+        out = (ctypes.c_int * 11)()
+        assert lib.euka_score_config(B, L, 0, out) == 0
+        G, nc, S, P, R, ctas, per_sm, regs, local, smem, cap = list(out)
+        print(f"B={B} L={L}: G={G} nc={nc} S={S} P={P} rows a CTA {R}, "
+              f"{ctas} CTAs, {per_sm} CTAs an SM, {regs} registers a "
+              f"thread, {local} local bytes, {smem} shared bytes a CTA, "
+              f"{cap} staged table rows")
+        assert G * nc * S > 0 and nc * S >= L and per_sm >= 2
+        assert cap > 0 and cap % 4 == 0 and regs <= 80
 
 
 @pytest.mark.parametrize("opt", ["-O3", "-O0"])

@@ -251,6 +251,12 @@ EUKA_SCORE_ARGTYPES = [
     _VP,                       # stream
 ]
 """The argument types of euka_score_launch."""
+EUKA_SCORE_OPTS_ARGTYPES = (EUKA_SCORE_ARGTYPES[:-1]
+                            + [_I32]  # opts (csrc/euka.cu)
+                            + EUKA_SCORE_ARGTYPES[-1:])
+"""The argument types of euka_score_launch_opts."""
+EUKA_CONFIG_ARGTYPES = [_I64, _I32, _I32, _VP]  # B, L, opts, out int32[11]
+"""The argument types of euka_score_config."""
 
 
 def _typed_lib(key: str, name: str, src: str, fn: str,
@@ -308,8 +314,42 @@ def haplocart_lib() -> ctypes.CDLL:
                       "hc_node_scores_launch", HC_NODE_SCORES_ARGTYPES)
 
 
+def type_euka(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Types a build of csrc/euka.cu's C entry points: euka_score_launch
+    (every build), euka_score_launch_opts and euka_score_config (where
+    the build has them)."""
+    for fn, argtypes in (("euka_score_launch", EUKA_SCORE_ARGTYPES),
+                         ("euka_score_launch_opts", EUKA_SCORE_OPTS_ARGTYPES),
+                         ("euka_score_config", EUKA_CONFIG_ARGTYPES)):
+        if fn == "euka_score_launch" or hasattr(lib, fn):
+            getattr(lib, fn).restype = _I32
+            getattr(lib, fn).argtypes = argtypes
+    return lib
+
+
+def euka_clocks_lib() -> ctypes.CDLL:
+    """csrc/euka.cu built for measurement only, with
+    -DVGAN_EUKA_PHASE_CLOCKS: the same entry points typed, and
+    euka_phase_clocks, which reads and clears the kernel's cycles in each
+    phase (see the source)."""
+    lib = _loaded.get("euka_clocks")
+    if lib is None:
+        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        nvcc = _find_tool("nvcc", [os.path.join(cuda_home, "bin", "nvcc")])
+        lib = type_euka(ctypes.CDLL(_build(
+            "vgan_euka_clocks", nvcc,
+            NVCC_FLAGS + ["-DVGAN_EUKA_PHASE_CLOCKS"], [EUKA_SRC], [])))
+        lib.euka_phase_clocks.restype = _I32
+        lib.euka_phase_clocks.argtypes = [_VP]  # out: unsigned long long [19]
+        _loaded["euka_clocks"] = lib
+    return lib
+
+
 def euka_lib() -> ctypes.CDLL:
     """The CUDA euka scorer kernel (csrc/euka.cu), built with nvcc for
-    sm_90a on first use, with its C entry point typed."""
-    return _typed_lib("euka", "vgan_euka", EUKA_SRC, "euka_score_launch",
-                      EUKA_SCORE_ARGTYPES)
+    sm_90a on first use, with its C entry points typed."""
+    lib = _loaded.get("euka")
+    if lib is None:
+        lib = type_euka(_nvcc_lib("vgan_euka", EUKA_SRC))
+        _loaded["euka"] = lib
+    return lib

@@ -20,6 +20,8 @@
 //   ACGT     any other column:    m2 = log(1 - 0.25536) if g == r, else
 //            log 0.25536; m1 = logsumexp over d of
 //            log(max(post[d], 1e-300)) + log(d == r4 ? 1 - qv : qv / 3),
+//            which equals log(sum over d of max(post[d], 1e-300) err[d]),
+//            err[d] = d == r4 ? 1 - qv : qv / 3 (the form computed here),
 //            post[d] = sum over o of pre[o] D[o][d],
 //            pre[o] = o == g4 ? 1 - pd : pd ttr[g4][o],
 //            D[o] = sub5p[l5][o] if sub5p[l5][o][o] <= sub3p[l3][o][o]
@@ -29,54 +31,101 @@
 // with qv = qtab[clamp(q, 0, n_q - 1)], g4 = clamp(g, 0, 3),
 // r4 = clamp(r, 0, 3), pd = pair_dist[b].
 //
-// Bound. The five [B, L] inputs, the three [B] ones and the tables read
-// once and the two [B] outputs written once, over 3.35 TB/s, against the
-// f64 instructions of the valid columns (an ACGT column's seven logs, four
-// exps, a division and the 4 x 4 product; a softclip column's log or
-// log1p) over 132 SMs x 64 FP64 lanes. At euka's calls (B ~ 4,096,
-// L = 64, most columns ACGT) the operations take ~5 us and the bytes
-// ~1.4 us, so the kernel is bound by f64 operations, and at that size
-// also by a launch and two dependent round trips to memory (the codes,
-// then the damage rows they index).
+// Bound. The five [B, L] inputs (17 bytes a column), the three [B] ones and
+// the tables read once and the two [B] outputs written once, over 3.35
+// TB/s, against the f64 instructions the function needs (an ACGT column
+// ~72: the 4 x 4 product, the clamps, 1 - qv, qv / 3, one log) over 132
+// SMs x 64 FP64 lanes. Bytes bound it at both shapes it runs at: euka's
+// calls (B ~ 4,096, L = 64: ~1.4 us; operations ~1.1 us) and a 1,000-bp
+// batch (B = 2,048, L = 1,024: ~10.7 us; operations ~8.5 us). The first
+// design (a warp a row, columns in tiles of 32) stood at 4-5 % of that:
+// an ACGT column reads 24 f64 of two 128-byte table rows, and 32 lanes
+// reading 32 different rows through L1 take 32 wavefronts an
+// instruction, ~24 cycles of an SM a column. What bounds this design on
+// the card is the instructions a column issues (its items take most of
+// a CTA's time, and the table reads and the log little of that); PERF.md
+// has its clock64 split.
 //
-// Design: simple first.
-// * A warp a row, eight rows a block; the lanes take the row's columns in
-//   tiles of 32, so each of the four int32 code loads of a tile is one
-//   coalesced 128-byte line.
-// * The softclip count spans the row in column order: a tile's softclip
-//   flags by __ballot_sync, a lane's count the popcount of the lanes at or
-//   below it plus the tiles before (the carry).
-// * The small tables (qtab, bfreq, ttr) and the damage rows (2 x maxlen x
-//   16 f64) are read through the read-only cache: the diagonal entries of
-//   both rows first, then the chosen rows.
-// * CUDA's f64 log, exp and log1p branch to slow paths on special inputs
-//   (0, inf, NaN), and a lane on a slow path holds up its warp. So the
-//   lanes whose column is no valid ACGT column run the ACGT terms on
-//   benign values (post = 1, qv = 0.5) and the softclip log1p on -0.5, and
-//   a select, never arithmetic, picks each column's terms: an inf or a NaN
-//   of an unused branch cannot leak into a sum.
-// * max(post, 1e-300) keeps a NaN (a compare that fails keeps post), as
-//   jnp.maximum does; CUDA's fmax would drop it. The logsumexp's maximum
-//   keeps a NaN too, and a maximum that is not finite is replaced by 0,
-//   as jax.scipy.special.logsumexp does; a NaN term then gives NaN.
-// * Each lane sums its own columns in tile order, a butterfly of xor
-//   shuffles sums the lanes, lane 0 writes the row. The order differs from
-//   torch's sum, so the kernel agrees with the plain version to rounding
-//   (rtol 1e-12), not bit for bit; a row's order depends only on the row,
-//   so one row gives the same bits in any batch.
-// The products and sums of the ACGT term use __dmul_rn / __dadd_rn, so no
-// multiply-add is contracted where torch rounds twice. Every index clamps
-// with min / max (clamp_index), around a ptxas fault of CUDA 12.9.
+// Design.
+// * One transcendental a valid column: the log of the sum above for
+//   ACGT, log(qv / 3) or log1p(-qv) for a softclip (log1p only where a
+//   lane of the warp needs it), none for N, gap and rare (the rare term
+//   is a row constant, one log a row). Lanes without a log of their own
+//   take log(1), the fast path.
+// * The damage-table rows a CTA's valid columns touch are staged in
+//   shared memory: the CTA reads its columns' n_pos and valid first,
+//   reduces the 5' and 3' row ranges (warp min / max, then the CTA's),
+//   and copies those rows with cp.async, as many as the shared memory
+//   left by the rows' tables holds (~370 of both). A lane's four columns
+//   are consecutive, so the lanes of a row read rows four apart: staged
+//   rows are kept by slot mod 4 in four quarters, 17 doubles a row, and
+//   16 lanes reading consecutive rows of a quarter hit 16 bank pairs. A
+//   column reads the four diagonal entries of both rows, then row o of
+//   the table each compare chooses (its diagonal entry reused): 20
+//   8-byte loads. A CTA whose ranges do not fit (long reads of both
+//   orientations in one CTA) reads the same entries through L1.
+// * Columns in flight: a lane takes four consecutive columns (16-byte
+//   loads of g, r, q, n_pos and one 4-byte word of valid where the rows
+//   are 16-byte aligned; scalar loads otherwise), G = 8, 16 or 32 lanes a
+//   row (L <= 32, <= 64, more), a CTA of eight warps P passes of 256 / G
+//   rows, the next item's codes loaded before the row's lane sum. 80
+//   registers a thread, three CTAs (24 warps) an SM.
+// * Long rows are split over a thread-block cluster: a row of more than
+//   128 columns takes nc = min(8, ceil(L / 128)) CTAs, each a span of
+//   ceil(L / 1,024) x 128 of its columns, for the same 16 rows; so a
+//   1,000-bp batch stages ~350 rows a CTA. Ranks 1.. write their rows'
+//   partial sums into rank 0's shared memory, arrive on the cluster
+//   barrier and leave; only rank 0 waits, then adds.
+// * The softclip count only matters mod 3: a chunk's flags by
+//   __ballot_sync, a lane's count the popcount of the lanes below it in
+//   its row's group plus the row's count so far; a CTA whose span does
+//   not start the row counts the softclips before it (the row's g and r
+//   from column 0) only when the span holds a valid softclip column.
+// * Deterministic sums: a lane adds its columns in column order, a
+//   butterfly of xor shuffles adds the G lanes of a row, and rank 0 adds
+//   the spans' partials in rank order; no atomics. G, the spans and the
+//   cluster size depend only on L, so a row gives the same bits in any
+//   batch, at any place in it (and padded with invalid columns).
+// * Exactness: max(post, 1e-300) keeps a NaN (a compare that fails keeps
+//   post), as jnp.maximum does; CUDA's fmax would drop it. A NaN diagonal
+//   fails the compare and takes the 3' row, as the plain version's where()
+//   does. Each class's terms are picked by a select, never arithmetic,
+//   so an inf or NaN of an unused class never reaches a sum. The products
+//   of the ACGT term contract to fused multiply-adds (__fma_rn), so the
+//   kernel rounds otherwise than torch's einsum and logsumexp: it agrees
+//   with the plain version to rtol 1e-12, not bit for bit. Every index
+//   clamps with min / max (clamp_index), around a ptxas fault of CUDA 12.9.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = kThreads / 32;  // a warp a row
+constexpr int kWarps = kThreads / 32;
+// CTAs an SM the registers are sized for: 3, at most 80 registers a
+// thread (-DVGAN_EUKA_MIN_BLOCKS=4, 64 registers and more spills, is a
+// measurement build for vgan_tpu_torch/euka_ab.py --flags)
+#ifndef VGAN_EUKA_MIN_BLOCKS
+#define VGAN_EUKA_MIN_BLOCKS 3
+#endif
+constexpr int kMinBlocks = VGAN_EUKA_MIN_BLOCKS;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxReads = 32;   // rows a CTA
+constexpr int kMaxCluster = 8;  // CTAs a row's columns split over (portable)
+constexpr int kChunkCols = 128;  // columns 32 lanes take at once (4 a lane)
+constexpr int kSmemBytes = 57344;  // dynamic shared memory a CTA
+constexpr int kRowStride = 17;  // doubles a staged row takes (16 + 1 pad)
+constexpr int kQCap = 128;      // qtab entries staged as (1 - qv, qv / 3)
+// euka_score_launch_opts' bits
+constexpr int kOptGlobalTables = 1;  // read the tables through L1 always
+constexpr int kOptScalarLoads = 2;   // no vector code loads
+constexpr int kOptPassShift = 8;     // bits 8..15: passes (0: the launcher's)
 // dna codes (vgan_tpu_torch/utils/dna.py)
 constexpr int kN = 4, kGap = 5, kSoft = 6, kRare = 7;
 // the constant terms, as Python's math.log gives them
@@ -87,160 +136,717 @@ constexpr double kSoftM2 = -0x1.62e42fefa39efp+0;      // log 0.25
 constexpr double kMatchM2 = -0x1.2dee4fc0e1ffcp-2;     // log(1 - 0.25536)
 constexpr double kMismatchM2 = -0x1.5d75f233de14fp+0;  // log 0.25536
 
-struct Tables {
+#ifdef VGAN_EUKA_PHASE_CLOCKS
+// Built with -DVGAN_EUKA_PHASE_CLOCKS (a build for measurement only):
+// cycles summed over CTAs (thread 0) of [0] the prologue and the range
+// pass (the first codes' loads), [1] the range reduction, [2] the
+// staging, [3] the items, [4] rank 0's wait for its cluster; over items
+// (lane 0 of each warp) of [5] the classes and the softclip count (the
+// wait for the item's codes), [6] the table reads, the 4 x 4 products,
+// the logs and the row sums, [7] the row's lane sum and the next item's
+// loads; then [8] CTAs, [9] items and [10] CTAs that staged their rows
+// counted; [11 + k] the items' cycles of rank k's CTAs (k < 8).
+// euka_phase_clocks reads and clears them.
+constexpr int kClocks = 19;
+__device__ unsigned long long g_euka_clocks[kClocks];
+#define EUKA_STAMP(t) const long long t = clock64()
+#else
+#define EUKA_STAMP(t)
+#endif
+
+struct Args {
+  const int32_t* g;
+  const int32_t* r;
+  const int32_t* q;
+  const int32_t* n_pos;
+  const int32_t* L_read;
+  const double* pair_dist;
+  const uint8_t* valid;
   const double* sub5p;  // [maxlen, 4, 4]
   const double* sub3p;  // [maxlen, 4, 4]
   int maxlen;
-  const double* qtab;   // [n_q]
+  const double* qtab;  // [n_q]
   int n_q;
   const double* bfreq;  // [n_bf]
   int n_bf;
-  const double* ttr;    // [4, 4]
+  const double* ttr;  // [4, 4]
+  long long B;
+  int L;
+  double* il;
+  double* nl;
+};
+
+// The launch's shape, from L and B (geometry()).
+struct Geo {
+  int G;     // lanes a row: 8, 16 or 32
+  int rpp;   // rows a pass: kThreads / G
+  int P;     // passes: a CTA takes rpp * P rows
+  int S;     // columns of a row a CTA takes (its span), a multiple of 4 G
+  int nc;    // CTAs a cluster: a row's columns in nc spans
+  int cap;   // staged table rows a CTA holds, a multiple of 4
+  int force_global;  // read the tables through L1 (kOptGlobalTables)
+};
+
+// A CTA's shared memory (kSmemBytes): the staged rows fill what the
+// rows' tables leave.
+struct Smem {
+  double* rows;     // [cap, 17]: staged rows (slot_index)
+  double* pre;      // [R, 16]: a row's pre[g4][o]
+  double* rare;     // [R]: a row's log((1 - pd) 0.001)
+  double* part;     // [kMaxCluster, R, 2]: each span's (m1, m2) partial
+                    // sums of the rows, written into rank 0's
+  double2* qt;      // [kQCap]: (1 - qv, qv / 3) of qtab's entries
+  int* red;         // [kWarps, 4]: the warps' table-row ranges
+  int quarter;      // cap / 4
+};
+
+// The bytes of Smem's arrays besides the rows, for R rows a CTA.
+__host__ __device__ constexpr int smem_fixed(int R) {
+  return R * (16 + 1 + 2 * kMaxCluster) * 8 + kQCap * 16 + kWarps * 4 * 4;
+}
+
+__device__ __forceinline__ Smem carve(unsigned char* raw, int cap, int R) {
+  Smem sm;
+  sm.rows = reinterpret_cast<double*>(raw);
+  sm.pre = sm.rows + kRowStride * cap;
+  sm.rare = sm.pre + 16 * R;
+  sm.part = sm.rare + R;
+  sm.qt = reinterpret_cast<double2*>(sm.part + 2 * kMaxCluster * R);
+  sm.red = reinterpret_cast<int*>(sm.qt + kQCap);
+  sm.quarter = cap / 4;
+  return sm;
+}
+
+// A lane's four columns of one row, 0 past the span or past B.
+struct Codes {
+  int g[4], r[4], q[4], n[4];
+  unsigned v;  // byte j: column j valid
+  int Lr;      // the row's L_read
 };
 
 // i clamped to 0..n - 1, with min / max: ptxas of CUDA 12.9 (V12.9.86) at
 // -O1 and above miscompiles the same clamp written as nested ternaries
-// where its result meets the constants of an unrolled loop (o == g4 and
-// d == r4 below took the wrong side at o, d = 3). The standalone repro is
+// where its result meets the constants of an unrolled loop (a compare
+// with o or d = 3 took the wrong side). The standalone repro is
 // csrc/ptxas_select_repro.cu; tests/test_torch_cuda.py holds this kernel
-// to its plain version when built at ptxas -O0, -O1 and -O2 too.
+// to its plain version when built at ptxas -O0 to -O3.
 __device__ __forceinline__ int clamp_index(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-// the ACGT column's m1 (see the header) for g4, r4 in 0..3 and damage
-// rows l5, l3 in the tables; `live` false gives a finite value of no use
-// without reading the damage rows
-__device__ __forceinline__ double acgt_m1(const Tables& t, bool live, int g4,
-                                          int r4, int l5, int l3, double pd,
-                                          double one_m_pd, double le_hit,
-                                          double le_miss) {
-  double post[4] = {1.0, 1.0, 1.0, 1.0};
-  if (live) {
-    const double* f5 = t.sub5p + 16 * l5;
-    const double* f3 = t.sub3p + 16 * l3;
-    post[0] = post[1] = post[2] = post[3] = 0.0;
+// The first double of staged slot s in Smem::rows. A lane's four columns
+// are consecutive, so in one instruction the lanes of a row read slots
+// four apart: slots are kept by s mod 4 in four quarters, each in slot
+// order, rows of 17 doubles, and 16 lanes reading 8-byte entries of
+// consecutive rows of a quarter hit 16 different bank pairs.
+__device__ __forceinline__ int slot_index(const Smem& sm, int s) {
+  return kRowStride * ((s & 3) * sm.quarter + (s >> 2));
+}
+
+__device__ __forceinline__ bool soft_code(int g, int r) {
+  const bool n = g == kN || r == kN;
+  const bool gap = g == kGap || r == kGap;
+  const bool rare = g == kRare || r == kRare;
+  return !n && !gap && !rare && (g == kSoft || r == kSoft);
+}
+
+__device__ __forceinline__ int l3_row(int Lr, int n, int maxlen) {
+  // L_read - n - 1 in int32 arithmetic that wraps, as JAX's does
+  return clamp_index((int)((unsigned)Lr - (unsigned)n - 1u), maxlen);
+}
+
+__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// Four int32 at p, a 16-byte boundary.
+__device__ __forceinline__ void load4(const int32_t* p, int* x) {
+  const int4 t = __ldg(reinterpret_cast<const int4*>(p));
+  x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+}
+
+// Loads a lane's four columns [c0, c0 + 4) of row b (those below c_hi):
+// n_pos and valid, and g, r and q when `full`.
+template <bool kVec>
+__device__ __forceinline__ void load_codes(const Args& a, long long b, int c0,
+                                           int c_hi, bool full, Codes& x) {
 #pragma unroll
-    for (int o = 0; o < 4; ++o) {
-      const double pre =
-          o == g4 ? one_m_pd : __dmul_rn(pd, __ldg(t.ttr + 4 * g4 + o));
-      // a NaN diagonal fails the compare and takes the 3' row, as the
-      // plain version's where() does
-      const double* row =
-          (__ldg(f5 + 5 * o) <= __ldg(f3 + 5 * o) ? f5 : f3) + 4 * o;
+  for (int j = 0; j < 4; ++j) x.g[j] = x.r[j] = x.q[j] = x.n[j] = 0;
+  x.v = 0;
+  x.Lr = 0;
+  if (b >= a.B) return;
+  x.Lr = __ldg(a.L_read + b);
+  if (c0 >= c_hi) return;
+  const long long i = b * (long long)a.L + c0;
+  if (kVec) {  // c_hi is L or a span's end, both multiples of 4
+    if (full) {
+      load4(a.g + i, x.g);
+      load4(a.r + i, x.r);
+      load4(a.q + i, x.q);
+    }
+    load4(a.n_pos + i, x.n);
+    x.v = __ldg(reinterpret_cast<const unsigned*>(a.valid + i));
+  } else {
 #pragma unroll
-      for (int d = 0; d < 4; ++d)
-        post[d] = __dadd_rn(post[d], __dmul_rn(pre, __ldg(row + d)));
+    for (int j = 0; j < 4; ++j) {
+      if (c0 + j < c_hi) {
+        if (full) {
+          x.g[j] = __ldg(a.g + i + j);
+          x.r[j] = __ldg(a.r + i + j);
+          x.q[j] = __ldg(a.q + i + j);
+        }
+        x.n[j] = __ldg(a.n_pos + i + j);
+        x.v |= (unsigned)(__ldg(a.valid + i + j) != 0) << (8 * j);
+      }
     }
   }
-  double x[4];
+}
+
+// The softclip columns of row b in [0, c_end), summed over the G lanes of
+// its group (every lane of the warp calls it; G divides 32); four steps
+// of the group's columns loaded at once.
+template <bool kVec>
+__device__ int soft_before(const Args& a, long long b, int c_end, int G,
+                           int gl) {
+  int cnt = 0;
+  if (b < a.B) {
+    const long long base = b * (long long)a.L;
+    for (int c = 4 * gl; c < c_end; c += 16 * G) {
+      Codes x[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int cu = c + 4 * G * u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) x[u].g[j] = x[u].r[j] = 0;
+        if (kVec) {
+          if (cu < c_end) {
+            load4(a.g + base + cu, x[u].g);
+            load4(a.r + base + cu, x[u].r);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (cu + j < c_end) {
+              x[u].g[j] = __ldg(a.g + base + cu + j);
+              x[u].r[j] = __ldg(a.r + base + cu + j);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) cnt += soft_code(x[u].g[j], x[u].r[j]);
+    }
+  }
+  for (int o = G >> 1; o > 0; o >>= 1) cnt += __shfl_xor_sync(kFull, cnt, o);
+  return cnt;
+}
+
+// sum over d of max(post[d], 1e-300) err[d] of an ACGT column (see the
+// header): for each o the diagonal entries of both rows, then row o of
+// the table the compare chooses; k5 / k3 are the column's staged slots
+// (kStaged) or its table rows.
+template <bool kStaged>
+__device__ __forceinline__ double acgt_sum(const Args& a, const Smem& sm,
+                                           const double* pre, int k5, int k3,
+                                           int r4, double e_hit,
+                                           double e_miss) {
+  double post[4];
+  if constexpr (kStaged) {
+    const int i5 = slot_index(sm, k5), i3 = slot_index(sm, k3);
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      const double d5 = sm.rows[i5 + 5 * o], d3 = sm.rows[i3 + 5 * o];
+      // a NaN diagonal fails the compare and takes the 3' row
+      const bool use5 = d5 <= d3;
+      const int i = (use5 ? i5 : i3) + 4 * o;
+      const double po = pre[o];
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        // the chosen row's diagonal entry is the one just compared
+        const double D = d == o ? (use5 ? d5 : d3) : sm.rows[i + d];
+        post[d] = o == 0 ? __dmul_rn(po, D) : __fma_rn(po, D, post[d]);
+      }
+    }
+  } else   {
+    const double* p5 = a.sub5p + 16 * (long long)k5;
+    const double* p3 = a.sub3p + 16 * (long long)k3;
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      const double* p =
+          (__ldg(p5 + 5 * o) <= __ldg(p3 + 5 * o) ? p5 : p3) + 4 * o;
+      const double po = pre[o];
+#pragma unroll
+      for (int d = 0; d < 4; ++d)
+        post[d] = o == 0 ? __dmul_rn(po, __ldg(p + d))
+                         : __fma_rn(po, __ldg(p + d), post[d]);
+    }
+  }
+  double s = 0.0;
 #pragma unroll
   for (int d = 0; d < 4; ++d) {
     const double p = post[d] < 1e-300 ? 1e-300 : post[d];  // NaN stays
-    x[d] = __dadd_rn(log(p), d == r4 ? le_hit : le_miss);
+    const double e = d == r4 ? e_hit : e_miss;
+    s = d == 0 ? __dmul_rn(p, e) : __fma_rn(p, e, s);
   }
-  double m = x[0];
-#pragma unroll
-  for (int d = 1; d < 4; ++d)
-    if (x[d] > m || x[d] != x[d]) m = x[d];  // a NaN wins and stays
-  if (!isfinite(m)) m = 0.0;
-  double s = 0.0;
-#pragma unroll
-  for (int d = 0; d < 4; ++d) s = __dadd_rn(s, exp(__dsub_rn(x[d], m)));
-  return __dadd_rn(log(s), m);
+  return s;
 }
 
-__global__ void __launch_bounds__(kThreads) euka_score_kernel(
-    const int32_t* g, const int32_t* r, const int32_t* q,
-    const int32_t* n_pos, const int32_t* L_read, const double* pair_dist,
-    const uint8_t* valid, Tables t, long long B, int L, double* il,
-    double* nl) {
+// Adds one column's (m1, m2) into (s1, s2) where it is valid (`ok`);
+// `count` is the row's softclips before it and takes this one's.
+template <bool kStaged>
+__device__ __forceinline__ void score_column(
+    const Args& a, const Smem& sm, const double* pre, double rare_m1,
+    bool qs, int gv, int rv, int q, int nv, int Lr, bool ok, bool soft,
+    int& count, int lo5, int n5, int lo3, double& s1, double& s2) {
+  const bool is_n = gv == kN || rv == kN;
+  const bool is_gap = !is_n && (gv == kGap || rv == kGap);
+  const bool is_rare = !is_n && !is_gap && (gv == kRare || rv == kRare);
+  count += soft;
+  const bool third = ok && soft && count % 3 == 0;
+  const bool acgt = ok && !is_n && !is_gap && !is_rare && !soft;
+  const int qi = clamp_index(q, a.n_q);
+  double e_hit, e_miss;
+  if (qs) {
+    const double2 t = sm.qt[qi];
+    e_hit = t.x;
+    e_miss = t.y;
+  } else {
+    const double qv = __ldg(a.qtab + qi);
+    e_hit = __dsub_rn(1.0, qv);
+    e_miss = qv / 3.0;
+  }
+  const int l5 = clamp_index(nv, a.maxlen);
+  const int l3 = l3_row(Lr, nv, a.maxlen);
+  // a column of another class reads slot 0 (or its clamped table rows)
+  // and drops the value
+  const int k5 = kStaged ? (acgt ? l5 - lo5 : 0) : l5;
+  const int k3 = kStaged ? (acgt ? n5 + l3 - lo3 : 0) : l3;
+  const double s = acgt_sum<kStaged>(a, sm, pre + 4 * clamp_index(gv, 4), k5,
+                                     k3, clamp_index(rv, 4), e_hit, e_miss);
+  // one log a column; log(1) where the column needs none
+  const double lx = log(acgt ? s : (ok && soft && !third ? e_miss : 1.0));
+  double m1 = 0.0, m2 = 0.0;
+  if (is_n) {
+    if (ok)
+      m1 = m2 = __ldg(a.bfreq + clamp_index(rv < 0 ? rv + a.n_bf : rv,
+                                            a.n_bf));
+  } else if (is_gap) {
+    m1 = kGapM1;
+    m2 = kGapM2;
+  } else if (is_rare) {
+    m1 = rare_m1;
+    m2 = kRareM2;
+  } else if (soft) {
+    m1 = third ? log1p(-__ldg(a.qtab + qi)) : lx;
+    m2 = kSoftM2;
+  } else {
+    m1 = lx;
+    m2 = gv == rv ? kMatchM2 : kMismatchM2;
+  }
+  if (ok) {
+    s1 = __dadd_rn(s1, m1);
+    s2 = __dadd_rn(s2, m2);
+  }
+}
+
+// Scores the CTA's items (a pass's row, a chunk of its span) from `cur`
+// on, adding into the row sums; the tables staged (kStaged) or not.
+template <bool kVec, bool kStaged>
+__device__ void run_items(const Args& a, const Geo& geo, const Smem& sm,
+                          double* part, Codes cur, long long b0, int rank,
+                          int c_lo, int c_hi, int lo5, int n5, int lo3) {
   const int lane = threadIdx.x & 31;
-  const long long b = (long long)blockIdx.x * kRows + (threadIdx.x >> 5);
-  if (b >= B) return;  // the whole warp: b is the warp's row
-  const double pd = pair_dist[b];
-  const double one_m_pd = __dsub_rn(1.0, pd);
-  const double rare_m1 = log(__dmul_rn(one_m_pd, 0.001));
-  const unsigned Lr = (unsigned)L_read[b];
-  const unsigned at_or_below = kFull >> (31 - lane);
-  const long long base = b * (long long)L;
-  int soft_before = 0;  // softclip columns in the row's earlier tiles
+  const int G = geo.G;
+  const int gl = lane & (G - 1);
+  const int slot0 = (threadIdx.x >> 5) * (32 / G) + lane / G;
+  const unsigned gmask =
+      G == 32 ? kFull : ((1u << G) - 1u) << (lane & ~(G - 1));
+  const unsigned below = ((1u << lane) - 1u) & gmask;
+  const int chunks = geo.S / (4 * G);
+  const int items = geo.P * chunks;
+  const bool qs = a.n_q <= kQCap;
   double s1 = 0.0, s2 = 0.0;
-  for (int c0 = 0; c0 < L; c0 += 32) {  // the same trip count on all lanes
-    const int c = c0 + lane;
-    const bool in = c < L;
-    int gv = 0, rv = 0, qi = 0, nv = 0;
-    bool ok = false;
-    if (in) {
-      const long long i = base + c;
-      gv = g[i];
-      rv = r[i];
-      qi = q[i];
-      nv = n_pos[i];
-      ok = valid[i] != 0;
-    }
-    const bool is_n = gv == kN || rv == kN;
-    const bool is_gap = !is_n && (gv == kGap || rv == kGap);
-    const bool is_rare = !is_n && !is_gap && (gv == kRare || rv == kRare);
-    const bool is_soft =
-        !is_n && !is_gap && !is_rare && (gv == kSoft || rv == kSoft);
-    const unsigned soft = __ballot_sync(kFull, in && is_soft);
-    const int count = soft_before + __popc(soft & at_or_below);
-    soft_before += __popc(soft);
-    const bool acgt = ok && !is_n && !is_gap && !is_rare && !is_soft;
-    const bool third = ok && is_soft && count % 3 == 0;
-    // benign 0.5 where the column's qv is not used
-    const double qv = ok ? __ldg(t.qtab + clamp_index(qi, t.n_q)) : 0.5;
-    const double le_miss = log(qv / 3.0);  // softclip and ACGT columns
-    const double le_hit = log(acgt ? __dsub_rn(1.0, qv) : 0.5);
-    const double soft1 = log1p(third ? -qv : -0.5);
-    const int l5 = clamp_index(nv, t.maxlen);
-    const int l3 = clamp_index((int)(Lr - (unsigned)nv - 1u), t.maxlen);
-    const double a1 = acgt_m1(t, acgt, clamp_index(gv, 4), clamp_index(rv, 4),
-                              l5, l3, pd, one_m_pd, le_hit, le_miss);
-    if (ok) {
-      double m1, m2;
-      if (is_n) {
-        m1 = m2 = __ldg(t.bfreq + clamp_index(rv < 0 ? rv + t.n_bf : rv,
-                                              t.n_bf));
-      } else if (is_gap) {
-        m1 = kGapM1;
-        m2 = kGapM2;
-      } else if (is_rare) {
-        m1 = rare_m1;
-        m2 = kRareM2;
-      } else if (is_soft) {
-        m1 = third ? soft1 : le_miss;
-        m2 = kSoftM2;
-      } else {
-        m1 = a1;
-        m2 = gv == rv ? kMatchM2 : kMismatchM2;
-      }
-      s1 = __dadd_rn(s1, m1);
-      s2 = __dadd_rn(s2, m2);
-    }
-  }
+  // the row's softclips in its span before this item's chunk (the
+  // group's), and before the span (-1: not counted yet)
+  int carry = 0, base = rank == 0 ? 0 : -1;
+  for (int it = 0; it < items; ++it) {
+    EUKA_STAMP(t0);
+    const int p = it / chunks, ch = it - p * chunks;
+    const int rs = p * geo.rpp + slot0;  // the row's slot in the CTA
+    const long long b = b0 + rs;
+    const int c0 = c_lo + ch * 4 * G + 4 * gl;
+    int is_soft = 0, count = carry;  // count: the softclips before a column
+    bool want = false;  // a valid softclip column, whose m1 needs the count
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    s1 = __dadd_rn(s1, __shfl_xor_sync(kFull, s1, o));
-    s2 = __dadd_rn(s2, __shfl_xor_sync(kFull, s2, o));
+    for (int j = 0; j < 4; ++j) {
+      const bool soft = c0 + j < c_hi && soft_code(cur.g[j], cur.r[j]);
+      is_soft |= (int)soft << j;
+      want |= soft && ((cur.v >> (8 * j)) & 0xffu) != 0;
+      const unsigned ballot = __ballot_sync(kFull, soft);
+      count += __popc(ballot & below);  // in the lanes below this one
+      carry += __popc(ballot & gmask);
+    }
+    // a span that does not start its row counts the softclips before it
+    // only where it holds a valid softclip column; every group of the
+    // warp starts a row at the same item, so base is unknown in all of
+    // them at once and the count runs for all
+    const bool some_want = __any_sync(kFull, want);
+    if (base < 0 && some_want) base = soft_before<kVec>(a, b, c_lo, G, gl);
+    count += base;
+    EUKA_STAMP(t1);
+    const double* pre = sm.pre + 16 * rs;
+    if constexpr (kStaged) {  // the four columns interleaved
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        score_column<true>(a, sm, pre, sm.rare[rs], qs, cur.g[j], cur.r[j],
+                           cur.q[j], cur.n[j], cur.Lr,
+                           ((cur.v >> (8 * j)) & 0xffu) != 0,
+                           (is_soft >> j) & 1, count, lo5, n5, lo3, s1, s2);
+    } else {  // one at a time: the L1 gathers run faster so (measured)
+      Codes c = cur;  // its column 0 is the step's column
+#pragma unroll 1
+      for (int j = 0; j < 4; ++j) {
+        score_column<false>(a, sm, pre, sm.rare[rs], qs, c.g[0], c.r[0],
+                            c.q[0], c.n[0], c.Lr, (c.v & 0xffu) != 0,
+                            (is_soft >> j) & 1, count, lo5, n5, lo3, s1, s2);
+        c.g[0] = c.g[1], c.g[1] = c.g[2], c.g[2] = c.g[3];
+        c.r[0] = c.r[1], c.r[1] = c.r[2], c.r[2] = c.r[3];
+        c.q[0] = c.q[1], c.q[1] = c.q[2], c.q[2] = c.q[3];
+        c.n[0] = c.n[1], c.n[1] = c.n[2], c.n[2] = c.n[3];
+        c.v >>= 8;
+      }
+    }
+    EUKA_STAMP(t2);
+    if (ch == chunks - 1) {  // the row's span is done: add the G lanes
+      for (int o = G >> 1; o > 0; o >>= 1) {
+        s1 = __dadd_rn(s1, __shfl_xor_sync(kFull, s1, o));
+        s2 = __dadd_rn(s2, __shfl_xor_sync(kFull, s2, o));
+      }
+      if (gl == 0 && b < a.B) {
+        if (geo.nc == 1) {
+          a.il[b] = s1;
+          a.nl[b] = s2;
+        } else {  // into rank 0's slots of this rank
+          part[2 * rs] = s1;
+          part[2 * rs + 1] = s2;
+        }
+      }
+      s1 = s2 = 0.0;
+      carry = 0;
+      base = rank == 0 ? 0 : -1;
+    }
+    if (it + 1 < items) {
+      const int pn = (it + 1) / chunks, chn = it + 1 - pn * chunks;
+      load_codes<kVec>(a, b0 + pn * geo.rpp + slot0,
+                       c_lo + chn * 4 * G + 4 * gl, c_hi, true, cur);
+    }
+#ifdef VGAN_EUKA_PHASE_CLOCKS
+    EUKA_STAMP(t3);
+    if (lane == 0) {
+      atomicAdd(&g_euka_clocks[5], (unsigned long long)(t1 - t0));
+      atomicAdd(&g_euka_clocks[6], (unsigned long long)(t2 - t1));
+      atomicAdd(&g_euka_clocks[7], (unsigned long long)(t3 - t2));
+      atomicAdd(&g_euka_clocks[9], 1ull);
+    }
+#endif
   }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    euka_score_kernel(Args a, Geo geo) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  EUKA_STAMP(k0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = geo.G;
+  const int gl = lane & (G - 1);
+  const int slot0 = warp * (32 / G) + lane / G;
+  const int rank = (int)(blockIdx.x % (unsigned)geo.nc);
+  const int R = geo.rpp * geo.P;
+  const Smem sm = carve(smem_raw, geo.cap, R);
+  const long long b0 = (long long)(blockIdx.x / (unsigned)geo.nc) * R;
+  const int c_lo = rank * geo.S;
+  const int c_hi = min(a.L, c_lo + geo.S);
+  const int chunks = geo.S / (4 * G);
+  const int items = geo.P * chunks;
+  const bool split = geo.nc > 1;  // a row's columns over a cluster
+  if (split)  // the cluster barrier's first phase: this CTA has started
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  // the first item's codes, then the rows' constants and qtab's
+  // (1 - qv, qv / 3)
+  Codes cur;
+  load_codes<kVec>(a, b0 + slot0, c_lo + 4 * gl, c_hi, true, cur);
+  for (int i = tid; i < 16 * R; i += kThreads) {
+    const long long b = b0 + (i >> 4);
+    const double pd = b < a.B ? a.pair_dist[b] : 0.0;
+    const int g4 = (i >> 2) & 3, o = i & 3;
+    sm.pre[i] =
+        g4 == o ? __dsub_rn(1.0, pd) : __dmul_rn(pd, __ldg(a.ttr + 4 * g4 + o));
+  }
+  for (int i = tid; i < R; i += kThreads) {
+    const long long b = b0 + i;
+    const double pd = b < a.B ? a.pair_dist[b] : 0.0;
+    sm.rare[i] = log(__dmul_rn(__dsub_rn(1.0, pd), 0.001));
+  }
+  if (a.n_q <= kQCap) {
+    for (int i = tid; i < a.n_q; i += kThreads) {
+      const double qv = __ldg(a.qtab + i);
+      sm.qt[i] = make_double2(__dsub_rn(1.0, qv), qv / 3.0);
+    }
+  }
+
+  // the range pass: the table rows the CTA's valid columns touch (two
+  // items' n_pos and valid loaded at once)
+  int lo5 = INT_MAX, hi5 = INT_MIN, lo3 = INT_MAX, hi3 = INT_MIN;
+  for (int it0 = 0; it0 < items; it0 += 2) {
+    Codes x[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int it = it0 + u;
+      const int p = it / chunks, ch = it - p * chunks;
+      if (it == 0)
+        x[u] = cur;
+      else if (it < items)
+        load_codes<kVec>(a, b0 + p * geo.rpp + slot0,
+                         c_lo + ch * 4 * G + 4 * gl, c_hi, false, x[u]);
+      else
+        x[u].v = 0;
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if ((x[u].v >> (8 * j)) & 0xffu) {
+          const int l5 = clamp_index(x[u].n[j], a.maxlen);
+          const int l3 = l3_row(x[u].Lr, x[u].n[j], a.maxlen);
+          lo5 = min(lo5, l5);
+          hi5 = max(hi5, l5);
+          lo3 = min(lo3, l3);
+          hi3 = max(hi3, l3);
+        }
+      }
+    }
+  }
+  lo5 = __reduce_min_sync(kFull, lo5);
+  hi5 = __reduce_max_sync(kFull, hi5);
+  lo3 = __reduce_min_sync(kFull, lo3);
+  hi3 = __reduce_max_sync(kFull, hi3);
   if (lane == 0) {
-    il[b] = s1;
-    nl[b] = s2;
+    sm.red[4 * warp] = lo5;
+    sm.red[4 * warp + 1] = hi5;
+    sm.red[4 * warp + 2] = lo3;
+    sm.red[4 * warp + 3] = hi3;
   }
+  EUKA_STAMP(k1);
+  __syncthreads();
+  for (int w = 0; w < kWarps; ++w) {
+    lo5 = min(lo5, sm.red[4 * w]);
+    hi5 = max(hi5, sm.red[4 * w + 1]);
+    lo3 = min(lo3, sm.red[4 * w + 2]);
+    hi3 = max(hi3, sm.red[4 * w + 3]);
+  }
+  const int n5 = hi5 >= lo5 ? hi5 - lo5 + 1 : 0;
+  const int n3 = hi3 >= lo3 ? hi3 - lo3 + 1 : 0;
+  const bool staged = !geo.force_global && n5 + n3 <= geo.cap;
+  EUKA_STAMP(k2);
+  if (staged) {  // every copy in flight at once, then one wait
+    for (int i = tid; i < 16 * (n5 + n3); i += kThreads) {
+      const int s = i >> 4, e = i & 15;
+      cp_async8(sm.rows + slot_index(sm, s) + e,
+                s < n5 ? a.sub5p + 16 * (long long)(lo5 + s) + e
+                       : a.sub3p + 16 * (long long)(lo3 + s - n5) + e);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+  __syncthreads();
+  EUKA_STAMP(k3);
+  // a split row's partials go into rank 0's slots of this rank: once
+  // every CTA of the cluster has started (the barrier's first phase,
+  // arrived at on entry), the rank's pointer into rank 0's memory
+  double* part = sm.part;
+  if (split) {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    part = cg::this_cluster().map_shared_rank(sm.part, 0) + 2 * R * rank;
+  }
+  if (staged)
+    run_items<kVec, true>(a, geo, sm, part, cur, b0, rank, c_lo, c_hi, lo5,
+                          n5, lo3);
+  else
+    run_items<kVec, false>(a, geo, sm, part, cur, b0, rank, c_lo, c_hi, lo5,
+                           n5, lo3);
+  EUKA_STAMP(k4);
+
+  if (split) {
+    // the second phase: every rank arrives after its partials are written
+    // (release) and leaves; rank 0 waits for them (acquire) and adds the
+    // spans' partials of each row in rank order
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    if (rank == 0) {
+      asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+      for (int i = tid; i < R; i += kThreads) {
+        const long long b = b0 + i;
+        if (b >= a.B) continue;
+        double t1 = sm.part[2 * i], t2 = sm.part[2 * i + 1];
+        for (int k = 1; k < geo.nc; ++k) {
+          t1 = __dadd_rn(t1, sm.part[2 * (k * R + i)]);
+          t2 = __dadd_rn(t2, sm.part[2 * (k * R + i) + 1]);
+        }
+        a.il[b] = t1;
+        a.nl[b] = t2;
+      }
+    }
+  }
+#ifdef VGAN_EUKA_PHASE_CLOCKS
+  EUKA_STAMP(k5);
+  if (tid == 0) {
+    atomicAdd(&g_euka_clocks[0], (unsigned long long)(k1 - k0));
+    atomicAdd(&g_euka_clocks[1], (unsigned long long)(k2 - k1));
+    atomicAdd(&g_euka_clocks[2], (unsigned long long)(k3 - k2));
+    atomicAdd(&g_euka_clocks[3], (unsigned long long)(k4 - k3));
+    atomicAdd(&g_euka_clocks[4], (unsigned long long)(k5 - k4));
+    atomicAdd(&g_euka_clocks[8], 1ull);
+    if (staged) atomicAdd(&g_euka_clocks[10], 1ull);
+    atomicAdd(&g_euka_clocks[11 + rank], (unsigned long long)(k4 - k3));
+  }
+#endif
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 1;
+}
+
+// The launch's shape for B rows of L columns of a table of maxlen rows
+// (opts: euka_score_launch_opts).
+Geo geometry(long long B, int L, int maxlen, int opts) {
+  Geo geo{};
+  geo.G = L > 64 ? 32 : (L > 32 ? 16 : 8);
+  geo.rpp = kThreads / geo.G;
+  if (geo.G == 32) {
+    const int chunks = (L + kChunkCols - 1) / kChunkCols;
+    const int per_cta = (chunks + kMaxCluster - 1) / kMaxCluster;
+    geo.nc = (chunks + per_cta - 1) / per_cta;
+    geo.S = per_cta * kChunkCols;
+  } else {
+    geo.nc = 1;
+    geo.S = 4 * geo.G;
+  }
+  const int p_most = kMaxReads / geo.rpp;
+  const int forced = (opts >> kOptPassShift) & 0xff;
+  if (forced > 0) {
+    geo.P = forced < p_most ? forced : p_most;
+  } else if (geo.nc > 1) {
+    geo.P = 2;  // two passes' rows fit the staged rows at 1,000 bp
+  } else {  // the most rows a CTA that still leave ~3 CTAs an SM
+    geo.P = p_most;
+    const long long want = 3LL * sm_count();
+    while (geo.P > 1 &&
+           (B + geo.rpp * geo.P - 1) / (geo.rpp * geo.P) * geo.nc < want)
+      geo.P >>= 1;
+  }
+  // the rows the shared memory holds beside the rows' tables, at most
+  // both tables
+  const int fit = (kSmemBytes - smem_fixed(geo.rpp * geo.P)) /
+                  (8 * kRowStride) & ~3;
+  const int both = (2 * maxlen + 3) & ~3;
+  geo.cap = fit < both ? fit : both;
+  geo.force_global = (opts & kOptGlobalTables) != 0;
+  return geo;
+}
+
+// The kernels' attributes (dynamic shared memory over 48 KB, all of the
+// unified memory as shared), set once a device.
+cudaError_t configure() {
+  static bool done[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  const void* fns[2] = {(const void*)euka_score_kernel<true>,
+                        (const void*)euka_score_kernel<false>};
+  for (const void* f : fns) {
+    cudaError_t err = cudaFuncSetAttribute(
+        f, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(f,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
+  done[dev] = true;
+  return cudaSuccess;
+}
+
+bool aligned(const void* p, uintptr_t n) {
+  return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
+// (il [B], nl [B]) of B rows of L columns on `stream`, with options
+// `opts`: bit 0 reads the damage tables through L1 in every CTA, bit 1
+// loads the codes one column at a time, bits 8..15 force the passes a CTA
+// (rows a CTA = 256 / G times it; 0: the launcher's choice). The results
+// do not depend on opts. Arguments as euka_score_launch's.
+int euka_score_launch_opts(const int32_t* g, const int32_t* r,
+                           const int32_t* q, const int32_t* n_pos,
+                           const int32_t* L_read, const double* pair_dist,
+                           const uint8_t* valid, const double* sub5p,
+                           const double* sub3p, int maxlen,
+                           const double* qtab, int n_q, const double* bfreq,
+                           int n_bf, const double* ttr, long long B, int L,
+                           double* il, double* nl, int opts, void* stream) {
+  if (B < 0 || L < 0 || maxlen < 1 || n_q < 1 || n_bf < 1)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  cudaError_t err = configure();
+  if (err != cudaSuccess) return (int)err;
+  const Geo geo = geometry(B, L, maxlen, opts);
+  const long long R = (long long)geo.rpp * geo.P;
+  const long long ctas = (B + R - 1) / R * geo.nc;
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const Args a{g,     r,    q,     n_pos, L_read, pair_dist, valid,
+               sub5p, sub3p, maxlen, qtab, n_q,   bfreq,     n_bf,
+               ttr,   B,    L,     il,    nl};
+  const bool vec = !(opts & kOptScalarLoads) && L % 4 == 0 &&
+                   aligned(g, 16) && aligned(r, 16) && aligned(q, 16) &&
+                   aligned(n_pos, 16) && aligned(valid, 4);
+  const void* fn = vec ? (const void*)euka_score_kernel<true>
+                       : (const void*)euka_score_kernel<false>;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3((unsigned)ctas);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = geo.nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = geo.nc > 1 ? 1 : 0;
+  void* params[2] = {(void*)&a, (void*)&geo};
+  err = cudaLaunchKernelExC(&cfg, fn, params);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 // (il [B], nl [B]) of B rows of L columns on `stream`. g, r, q, n_pos
 // [B, L] and L_read [B] int32; pair_dist [B] f64; valid [B, L] uint8;
 // sub5p, sub3p [maxlen, 4, 4], qtab [n_q], bfreq [n_bf], ttr [4, 4] f64.
-// All device pointers, contiguous. B = 0 launches nothing. Returns the
-// launch's CUDA error (0 = launched), or cudaErrorInvalidValue for
-// arguments it cannot take.
+// All device pointers, contiguous; il and nl may be two rows of one
+// [2, B] tensor. B = 0 launches nothing. Returns the launch's CUDA error
+// (0 = launched), or cudaErrorInvalidValue for arguments it cannot take.
 int euka_score_launch(const int32_t* g, const int32_t* r, const int32_t* q,
                       const int32_t* n_pos, const int32_t* L_read,
                       const double* pair_dist, const uint8_t* valid,
@@ -248,15 +854,57 @@ int euka_score_launch(const int32_t* g, const int32_t* r, const int32_t* q,
                       const double* qtab, int n_q, const double* bfreq,
                       int n_bf, const double* ttr, long long B, int L,
                       double* il, double* nl, void* stream) {
-  if (B < 0 || L < 0 || maxlen < 1 || n_q < 1 || n_bf < 1)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  const long long blocks = (B + kRows - 1) / kRows;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const Tables t{sub5p, sub3p, maxlen, qtab, n_q, bfreq, n_bf, ttr};
-  euka_score_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      g, r, q, n_pos, L_read, pair_dist, valid, t, B, L, il, nl);
-  return (int)cudaGetLastError();
+  return euka_score_launch_opts(g, r, q, n_pos, L_read, pair_dist, valid,
+                                sub5p, sub3p, maxlen, qtab, n_q, bfreq, n_bf,
+                                ttr, B, L, il, nl, 0, stream);
 }
+
+// The launch's shape and the card's occupancy for B rows of L columns
+// (damage tables of 1,000 rows) with `opts`, into out[11]: G (lanes a
+// row), nc (CTAs a cluster), S (columns a CTA of a row), P (passes), rows
+// a CTA, CTAs, CTAs an SM (the 16-byte-load kernel's occupancy), its
+// registers a thread, its local (spill) bytes a thread, its dynamic
+// shared bytes a CTA, the staged table rows a CTA holds. Returns a CUDA
+// error (0 = done).
+int euka_score_config(long long B, int L, int opts, int* out) {
+  if (B < 0 || L < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = configure();
+  if (err != cudaSuccess) return (int)err;
+  const Geo geo = geometry(B > 0 ? B : 1, L, 1000, opts);
+  const long long R = (long long)geo.rpp * geo.P;
+  cudaFuncAttributes fa{};
+  const void* fn = (const void*)euka_score_kernel<true>;
+  err = cudaFuncGetAttributes(&fa, fn);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fn, kThreads, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long ctas = (B + R - 1) / R * geo.nc;
+  out[0] = geo.G;
+  out[1] = geo.nc;
+  out[2] = geo.S;
+  out[3] = geo.P;
+  out[4] = (int)R;
+  out[5] = (int)(ctas < INT_MAX ? ctas : INT_MAX);
+  out[6] = per_sm;
+  out[7] = fa.numRegs;
+  out[8] = (int)fa.localSizeBytes;
+  out[9] = kSmemBytes;
+  out[10] = geo.cap;
+  return 0;
+}
+
+#ifdef VGAN_EUKA_PHASE_CLOCKS
+// The cycles summed since the last call (see g_euka_clocks) into
+// out [19]; then clears them. Returns a CUDA error code.
+int euka_phase_clocks(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_euka_clocks,
+                                       sizeof(g_euka_clocks));
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[kClocks] = {};
+  return (int)cudaMemcpyToSymbol(g_euka_clocks, zero, sizeof(zero));
+}
+#endif
 
 }  // extern "C"

@@ -199,12 +199,11 @@ def score_rows_split(fn: Callable, rows: Sequence[torch.Tensor],
                      consts: Sequence[Sequence[torch.Tensor]]):
     """fn(*row_tensors, *consts[k]) on device k for its contiguous share
     of the rows (consts[k]: that device's copies of the tables, e.g.
-    from `replicate`); fn returns a tuple of [rows, ...] tensors, which
-    come back concatenated in row order on the first device."""
+    from `replicate`); fn returns one [k, rows] tensor, and the shares
+    come back as one [k, all rows] tensor on the first device."""
     devs = [c[0].device for c in consts]
     outs = []
     for sl, dev, cs in zip(split_rows(rows[0].shape[0], len(devs)), devs,
                            consts):
         outs.append(fn(*[r[sl].to(dev) for r in rows], *cs))
-    return tuple(torch.cat([o[i].to(devs[0]) for o in outs])
-                 for i in range(len(outs[0])))
+    return torch.cat([o.to(devs[0]) for o in outs], dim=1)

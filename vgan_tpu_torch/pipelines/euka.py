@@ -214,18 +214,24 @@ def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
 
 
 def score_batch(
-    g, r, q, n_pos, L_read, pair_dist, valid, sub5p, sub3p, qtab, bfreq, ttr
+    g, r, q, n_pos, L_read, pair_dist, valid, sub5p, sub3p, qtab, bfreq, ttr,
+    opts: int = 0,
 ):
-    """(in_clade_lik [B], not_in_clade_lik [B]) of the arguments of
-    score_batch_plain, on the device they sit on. CPU tensors run
-    score_batch_plain; CUDA tensors launch euka_score_kernel
+    """[2, B] f64, (in_clade_lik, not_in_clade_lik) as its rows, of the
+    arguments of score_batch_plain, on the device they sit on. CPU
+    tensors run score_batch_plain; CUDA tensors launch euka_score_kernel
     (csrc/euka.cu) once, or raise (no fallback). The kernel agrees with
-    the plain version to rounding (rtol 1e-12: its sums run in another
-    order), and a row gives the same bits in any batch."""
+    the plain version to rounding (rtol 1e-12: it takes the log of a sum
+    where the plain version takes a logsumexp of logs, and its sums run
+    in another order), and a row gives the same bits in any batch.
+    `opts` (the card only) forces a path of the kernel for tests and
+    measurements (csrc/euka.cu euka_score_launch_opts; the results do not
+    depend on it)."""
     dev = g.device
     if dev.type == "cpu":
-        return score_batch_plain(g, r, q, n_pos, L_read, pair_dist, valid,
-                                 sub5p, sub3p, qtab, bfreq, ttr)
+        return torch.stack(score_batch_plain(g, r, q, n_pos, L_read,
+                                             pair_dist, valid, sub5p, sub3p,
+                                             qtab, bfreq, ttr))
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from .._native import euka_lib
@@ -248,22 +254,24 @@ def score_batch(
                                                       sub3p, qtab, bfreq,
                                                       ttr)]
     ok = valid.to(torch.bool).contiguous().view(torch.uint8)
-    il = torch.empty(B, dtype=torch.float64, device=dev)
-    nl = torch.empty(B, dtype=torch.float64, device=dev)
+    out = torch.empty((2, B), dtype=torch.float64, device=dev)
     if B == 0:
-        return il, nl
+        return out
     lib = euka_lib()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.euka_score_launch(
-            *[_ptr(x) for x in i32], _ptr(f64[0]), _ptr(ok), _ptr(f64[1]),
-            _ptr(f64[2]), maxlen, _ptr(f64[3]), f64[3].numel(),
-            _ptr(f64[4]), f64[4].numel(), _ptr(f64[5]), B, L, _ptr(il),
-            _ptr(nl), ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        args = ([_ptr(x) for x in i32] + [
+            _ptr(f64[0]), _ptr(ok), _ptr(f64[1]), _ptr(f64[2]), maxlen,
+            _ptr(f64[3]), f64[3].numel(), _ptr(f64[4]), f64[4].numel(),
+            _ptr(f64[5]), B, L, _ptr(out[0]), _ptr(out[1])])
+        if opts:
+            rc = lib.euka_score_launch_opts(*args, opts, stream)
+        else:
+            rc = lib.euka_score_launch(*args, stream)
     if rc != 0:
         raise RuntimeError(f"euka_score kernel launch failed: CUDA error {rc}")
     LAUNCHES["euka_score"] += 1
-    return il, nl
+    return out
 
 
 @dataclass
@@ -738,20 +746,19 @@ class EukaScorer:
     def _score_arrays(self, g, r, q, n_pos, L_read, pair_dist, valid):
         """Upload the seven host arrays, score them on the scorer's
         device (or their rows split over its devices), and download
-        (il, nl) with one copy of a stacked [2, B]."""
+        (il, nl) with one copy of the scorer's [2, B]."""
         host = [torch.from_numpy(np.ascontiguousarray(x))
                 for x in (g, r, q, n_pos, L_read, pair_dist, valid)]
         if self._split_tables is not None:
             from ..parallel.mesh import score_rows_split
 
-            il_d, nl_d = score_rows_split(score_batch, host,
-                                          self._split_tables)
+            both = score_rows_split(score_batch, host, self._split_tables)
         else:
-            il_d, nl_d = score_batch(
+            both = score_batch(
                 *[x.to(self.device) for x in host], self.sub5p, self.sub3p,
                 self.qtab, self.bfreq, self.ttr,
             )
-        both = torch.stack([il_d, nl_d]).cpu().numpy()
+        both = both.cpu().numpy()
         il, nl = both[0], both[1]
         # batch-boundary equivalent of the reference's per-base NaN/Inf
         # gate (`src/readGAM_Euka.h` throws on bad log-likes)
