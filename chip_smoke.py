@@ -88,11 +88,11 @@ and prints no result):
    and on the device alone beside its bound (euka_work: the f64
    instructions the function needs for the call's valid columns by
    class, against its bytes), the plain version and its ops as one CUDA graph replayed (the
-   library comparator, never on the path), the kernel's own paths on the
-   device alone (damage tables through L1, scalar code loads; the same
-   bits), its launch shape and occupancy, and a clock64 phase split from
-   the measurement build; the calls' share of map+score logged; then a
-   synthetic 1,000-bp batch (B = 2,048, L = 1,024) the same way.
+   library comparator, never on the path), its launch shape and
+   occupancy, and a clock64 phase split from the measurement build; the
+   calls' share of map+score logged; then a synthetic 1,000-bp batch
+   (B = 2,048, L = 1,024) the same way, and the same batch with half of
+   its reads reverse (both orientations, as euka's own batches hold).
    Then the reads mapped on the card and on the CPU
    (every table field equal), each gather_score_hash call of the card's
    mapping (euka's shapes: 64-row read bucket, its own window and row
@@ -208,8 +208,8 @@ window) and for the likelihood step at the HaploCart warm-up run's
 largest call (no library call computes it; its device time and phase
 split), for euka's scorer at the euka warm-up run's largest call
 (library_ms: the CUDA-graph replay; the other call's ms, the launch
-shape, the paths' device times, the phase split and the 1,000-bp batch's
-numbers beside it).
+shape, the phase split and the two 1,000-bp batches' numbers beside
+it).
 Every timing line names the card and its power limit. The
 second-to-last lines are the nvidia-smi line and one JSON object
 describing the kernels; the last line is
@@ -336,9 +336,6 @@ EUKA_SOURCE = "vgan_tpu_torch/csrc/euka.cu"
 EUKA_REPLACES = "vgan_tpu/pipelines/euka.py:111"  # _score_batch_impl
 EUKA_OPS_ACGT, EUKA_OPS_SOFT_THIRD, EUKA_OPS_SOFT_OTHER = 72, 32, 40
 EUKA_OPS_OTHER, EUKA_OPS_ROW = 2, 31
-# euka_score_launch_opts' paths (csrc/euka.cu): the tables through L1,
-# scalar code loads
-EUKA_OPT_L1_TABLES, EUKA_OPT_SCALAR_LOADS = 1, 2
 # the scorer at a synthetic 1,000-bp read batch: rows, the column bucket
 EUKA_LONG_B, EUKA_LONG_L = 2048, 1024
 
@@ -1581,6 +1578,20 @@ def synthetic_euka_args(tables, B, L, seed=5):
             t(valid, torch.bool)) + tuple(tables)
 
 
+def both_orientations(args, seed=4):
+    """score_batch's arguments `args` with every other read, drawn from a
+    seed, reverse: n_pos = L_read - 1 - the forward position inside the
+    read, as euka counts a reverse read's damage positions down."""
+    import torch
+
+    n_pos, L_read, valid = args[3], args[4], args[6]
+    gen = torch.Generator(device=n_pos.device).manual_seed(seed)
+    rev = torch.rand(n_pos.shape[0], generator=gen, device=n_pos.device) < 0.5
+    back = torch.where(valid, L_read[:, None] - 1 - n_pos, n_pos)
+    n_pos = torch.where(rev[:, None], back, n_pos).to(torch.int32)
+    return args[:3] + (n_pos.contiguous(),) + args[4:]
+
+
 def time_euka_call(label, args, got, smi):
     """One score_batch call (`got`: the kernel's outputs on `args`)
     against score_batch_plain on the card (rtol 1e-12, NaN where NaN);
@@ -1612,28 +1623,18 @@ def time_euka_call(label, args, got, smi):
     dev_txt = ("device time not measured" if dev_ms is None else
                f"on the device alone {dev_ms:.4f} ms = "
                f"{100 * bms / dev_ms:.1f} %")
-    # the kernel's own paths on the device alone: the damage tables through
-    # L1 in every CTA (no staging), scalar code loads (no 16-byte loads)
-    paths = {}
-    for name, opts in (("l1_tables", EUKA_OPT_L1_TABLES),
-                       ("scalar_loads", EUKA_OPT_SCALAR_LOADS)):
-        other = ek.score_batch(*args, opts=opts)
-        _close(f"{label} {name}", other, got, 0.0)
-        paths[name] = queued_ms(lambda: ek.score_batch(*args, opts=opts), 20)
     cfg = euka_config(B, L)
     split = euka_phase_split(args)
     log(f"{label} (B={B}, L={L}, valid columns {cols}): kernel {ms:.4f} ms "
         f"a call ({100 * bms / ms:.2f} % of the {bms:.5f} ms bound, {by}; "
         f"{dev_txt}), plain {plain:.3f} ms, its ops as one CUDA graph "
         f"{graph_ms:.3f} ms a replay; equal to plain (max abs err "
-        f"{err:.3g}); on the device alone with the tables through L1 "
-        f"{_ms_txt(paths['l1_tables'])}, with scalar loads "
-        f"{_ms_txt(paths['scalar_loads'])} (the same bits); launch "
+        f"{err:.3g}); launch "
         f"{json.dumps(cfg)}; clock64 phase split (measurement build) "
         f"{json.dumps(split)}; on {smi}")
     return dict(B=B, L=L, ms=ms, device_ms=dev_ms, plain_ms=plain,
                 graph_ms=graph_ms, bound_ms=bms, bound_by=by,
-                max_abs_err=err, columns=cols, paths_device_ms=paths,
+                max_abs_err=err, columns=cols,
                 config=cfg, phase_split=split)
 
 
@@ -1649,8 +1650,8 @@ def euka_phase_split(args, reps=10):
     """Mean cycles a CTA and a warp's item in each phase of
     euka_score_kernel on `args`, from the measurement build
     (_native.euka_clocks_lib, -DVGAN_EUKA_PHASE_CLOCKS) called through
-    score_batch `reps` times; and the share of CTAs that staged their
-    table rows."""
+    score_batch `reps` times; and the shares of CTAs that staged their
+    table rows, and that staged them in two rounds."""
     import ctypes
 
     import torch
@@ -1659,7 +1660,7 @@ def euka_phase_split(args, reps=10):
     from vgan_tpu_torch.pipelines import euka as ek
 
     lib, ours = _native.euka_clocks_lib(), _native.euka_lib()
-    out = (ctypes.c_ulonglong * 19)()
+    out = (ctypes.c_ulonglong * 20)()
     _native._loaded["euka"] = lib
     try:
         torch.cuda.synchronize()
@@ -1680,11 +1681,7 @@ def euka_phase_split(args, reps=10):
                              for i, k in enumerate(EUKA_ITEM_PHASES)},
                 items_cycles_by_rank=[round(v[11 + k] * nc / ctas)
                                       for k in range(nc)],
-                staged_share=v[10] / ctas)
-
-
-def _ms_txt(ms):
-    return "not measured" if ms is None else f"{ms:.4f} ms"
+                staged_share=v[10] / ctas, two_round_share=v[19] / ctas)
 
 
 def euka_config(B, L):
@@ -1695,7 +1692,7 @@ def euka_config(B, L):
     from vgan_tpu_torch import _native
 
     out = (ctypes.c_int * 11)()
-    rc = _native.euka_lib().euka_score_config(B, L, 0, out)
+    rc = _native.euka_lib().euka_score_config(B, L, out)
     if rc != 0:
         raise AssertionError(f"euka_score_config: CUDA error {rc}")
     return dict(zip(("G", "nc", "S", "P", "rows_a_cta", "ctas",
@@ -1708,7 +1705,8 @@ def check_euka_scorer(calls, map_score_s, smi):
     arguments and outputs) held to score_batch_plain and timed
     (time_euka_call), the calls' kernel time as a share of the run's
     map+score; then the synthetic 1,000-bp batch (synthetic_euka_args on
-    the run's own tables) the same way."""
+    the run's own tables) the same way, and the same batch with half of
+    its reads reverse (both_orientations)."""
     from vgan_tpu_torch.pipelines import euka as ek
 
     if not calls:
@@ -1722,9 +1720,14 @@ def check_euka_scorer(calls, map_score_s, smi):
     args = synthetic_euka_args(calls[0][0][7:], EUKA_LONG_B, EUKA_LONG_L)
     long = time_euka_call("euka scorer, synthetic 1,000-bp reads", args,
                           ek.score_batch(*args), smi)
+    args = both_orientations(args)
+    both = time_euka_call(
+        "euka scorer, synthetic 1,000-bp reads of both orientations", args,
+        ek.score_batch(*args), smi)
     return dict(calls=rows, share_of_map_score=total / 1e3 / map_score_s,
-                long=long, max_abs_err=max([r["max_abs_err"] for r in rows]
-                                           + [long["max_abs_err"]]))
+                long=long, long_both=both,
+                max_abs_err=max([r["max_abs_err"] for r in rows]
+                                + [long["max_abs_err"], both["max_abs_err"]]))
 
 
 def phase_euka(dev, out_dir, clock):
@@ -3038,11 +3041,12 @@ def main() -> int:
         "calls_device_ms": [c["device_ms"] for c in eu["scorer"]["calls"]],
         "share_of_map_score": eu["scorer"]["share_of_map_score"],
         "config": t_eu["config"],
-        "paths_device_ms": t_eu["paths_device_ms"],
         "phase_split": t_eu["phase_split"],
-        "long_1000bp": {k: eu["scorer"]["long"][k] for k in (
+        **{key: {k: eu["scorer"][src][k] for k in (
             "B", "L", "ms", "device_ms", "plain_ms", "graph_ms", "bound_ms",
-            "bound_by", "config", "paths_device_ms", "phase_split")},
+            "bound_by", "config", "phase_split")}
+           for key, src in (("long_1000bp", "long"),
+                            ("long_1000bp_both_orientations", "long_both"))},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -364,18 +364,11 @@ def test_euka_score_kernel_same_at_every_ptxas_level(dev, monkeypatch, opt):
     the library's (-O3): on every case equal to the plain version and to
     the library's build, both to rtol 1e-12 (libdevice's log and exp may
     round their last bit otherwise when ptxas fuses less)."""
-    import ctypes
-
     from vgan_tpu_torch import _native
-    from vgan_tpu_torch.pipelines import euka as ek
 
     cases = _euka_cases()
     want = {k: _euka_kernel_vs_plain(dev, *v) for k, v in cases.items()}
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    lib = _native.type_euka(ctypes.CDLL(_native._build(
-        f"vgan_euka_ptxas{opt}", _native._find_tool("nvcc", [nvcc]),
-        _native.NVCC_FLAGS + ["-Xptxas", opt], [_native.EUKA_SRC], [])))
+    lib = _native.euka_build(f"vgan_euka_ptxas{opt}", ["-Xptxas", opt])
     monkeypatch.setitem(_native._loaded, "euka", lib)
     assert _native.euka_lib() is lib
     for k, v in cases.items():
@@ -385,26 +378,96 @@ def test_euka_score_kernel_same_at_every_ptxas_level(dev, monkeypatch, opt):
                                        equal_nan=True)
 
 
-# euka_score_launch_opts: the tables through L1 in every CTA, scalar code
-# loads, both, and 1, 2, 4 passes a CTA (the results must not change)
-EUKA_OPTS = (1, 2, 3, 1 << 8, 2 << 8, 4 << 8, 1 | 2 << 8)
+# csrc/euka.cu's builds for tests and measurement: every CTA reading the
+# tables through L1, scalar code loads, both (the results must not change)
+EUKA_PATH_FLAGS = (("-DVGAN_EUKA_TABLES_L1",), ("-DVGAN_EUKA_SCALAR_LOADS",),
+                   ("-DVGAN_EUKA_TABLES_L1", "-DVGAN_EUKA_SCALAR_LOADS"))
+_EUKA_BUILDS = {}
+
+
+def _euka_build(flags):
+    """csrc/euka.cu built with the extra nvcc `flags` (once a process)."""
+    from vgan_tpu_torch import _native
+
+    if flags not in _EUKA_BUILDS:
+        _EUKA_BUILDS[flags] = _native.euka_build("vgan_euka_path",
+                                                 list(flags))
+    return _EUKA_BUILDS[flags]
+
+
+def _score_with(lib, *args):
+    """score_batch(*args) launching the kernel of the library `lib`."""
+    from vgan_tpu_torch import _native
+    from vgan_tpu_torch.pipelines import euka as ek
+
+    saved = _native._loaded.get("euka")
+    _native._loaded["euka"] = lib
+    try:
+        return ek.score_batch(*args)
+    finally:
+        if saved is None:
+            _native._loaded.pop("euka")
+        else:
+            _native._loaded["euka"] = saved
+
+
+def _same_bits(got, want, what):
+    for g, w in zip(got, want):
+        assert torch.equal(g.isnan(), w.isnan()), what
+        assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w)), what
 
 
 @pytest.mark.parametrize("case", EUKA_CASES)
 def test_euka_score_kernel_every_path_same_bits(dev, case):
     """Each case through every path of the kernel (staged or L1 tables,
-    16-byte or scalar loads, the passes a CTA): the bits of the default
-    path, which equals the plain version."""
-    from vgan_tpu_torch.pipelines import euka as ek
-
+    16-byte or scalar loads, each forced by a build): the bits of the
+    default build, which equals the plain version."""
     arrays, tables = _euka_cases()[case]
     want = _euka_kernel_vs_plain(dev, arrays, tables)
     rows, consts = _euka_on(arrays, tables, dev)
-    for opts in EUKA_OPTS:
-        got = ek.score_batch(*rows, *consts, opts=opts).cpu()
-        for g, w in zip(got, want):
-            assert torch.equal(g.isnan(), w.isnan()), opts
-            assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w)), opts
+    for flags in EUKA_PATH_FLAGS:
+        _same_bits(_score_with(_euka_build(flags), *rows, *consts).cpu(),
+                   want, flags)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_euka_score_kernel_1000bp_batch_staged_rounds(dev, reverse):
+    """chip_smoke's synthetic 1,000-bp batch (B = 2,048, L = 1,024), of
+    forward reads and with half of them reverse: equal to plain, the same
+    bits as the build that reads the tables through L1 in every CTA; the
+    phase-clock build counts every CTA staged, in one round for the
+    forward reads, and some CTAs in two rounds for both orientations."""
+    import ctypes
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+    from vgan_tpu_torch import _native
+    from vgan_tpu_torch.pipelines import euka as ek
+    from vgan_tpu_torch.euka_ab import damage_tables
+
+    args = cs.synthetic_euka_args(damage_tables(dev), cs.EUKA_LONG_B,
+                                  cs.EUKA_LONG_L)
+    if reverse:
+        args = cs.both_orientations(args)
+    got = ek.score_batch(*args)
+    want = ek.score_batch_plain(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=0, equal_nan=True)
+    _same_bits(_score_with(_euka_build(EUKA_PATH_FLAGS[0]), *args), got,
+               "tables through L1")
+    clocks = _native.euka_clocks_lib()
+    out = (ctypes.c_ulonglong * 20)()
+    torch.cuda.synchronize()
+    assert clocks.euka_phase_clocks(out) == 0
+    _same_bits(_score_with(clocks, *args), got, "phase clocks")
+    torch.cuda.synchronize()
+    assert clocks.euka_phase_clocks(out) == 0
+    ctas, staged, two = out[8], out[10], out[19]
+    print(f"reverse={reverse}: {ctas} CTAs, {staged} staged, {two} in two "
+          f"rounds")
+    assert ctas > 0 and staged == ctas
+    assert (two > 0) if reverse else (two == 0)
 
 
 def _euka_long_case(rng, B, L):
@@ -451,8 +514,9 @@ def _unaligned(a, d):
 @pytest.mark.parametrize("L", [1, 3, 77, 1023, 1025, 2100])
 def test_euka_score_kernel_odd_and_unaligned_rows(dev, L):
     """Odd L and rows whose tensors start off a 16-byte boundary, with and
-    without the 16-byte path (forced off, or taken where L % 4 == 0 and
-    the tensors are aligned): equal to plain, the same bits each way."""
+    without the 16-byte path (forced off by a build, or taken where
+    L % 4 == 0 and the tensors are aligned): equal to plain, the same bits
+    each way."""
     from vgan_tpu_torch.pipelines import euka as ek
 
     rng = np.random.default_rng(L + 5)
@@ -461,10 +525,12 @@ def test_euka_score_kernel_odd_and_unaligned_rows(dev, L):
     rows, consts = _euka_on(arrays, tables, dev)
     shifted = [_unaligned(a, dev) if a.ndim == 2 else r
                for a, r in zip(arrays, rows)]
-    for args, opts in ((rows, 2), (shifted, 0), (shifted, 2)):
-        got = ek.score_batch(*args, *consts, opts=opts).cpu()
+    scalar = _euka_build(EUKA_PATH_FLAGS[1])
+    for args, lib in ((rows, scalar), (shifted, None), (shifted, scalar)):
+        got = (ek.score_batch(*args, *consts) if lib is None else
+               _score_with(lib, *args, *consts)).cpu()
         for g, w in zip(got, want):
-            assert torch.equal(g, w), opts
+            assert torch.equal(g, w), lib
 
 
 def test_euka_score_kernel_65536_rows(dev):
@@ -487,7 +553,7 @@ def test_euka_score_config_registers_and_occupancy(dev):
     lib = _native.euka_lib()
     for B, L in ((4096, 64), (2048, 1024), (65536, 64)):
         out = (ctypes.c_int * 11)()
-        assert lib.euka_score_config(B, L, 0, out) == 0
+        assert lib.euka_score_config(B, L, out) == 0
         G, nc, S, P, R, ctas, per_sm, regs, local, smem, cap = list(out)
         print(f"B={B} L={L}: G={G} nc={nc} S={S} P={P} rows a CTA {R}, "
               f"{ctas} CTAs, {per_sm} CTAs an SM, {regs} registers a "

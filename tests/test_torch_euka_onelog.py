@@ -57,6 +57,10 @@ def _const(name):
 
 THREADS, SPAN, MAX_CLUSTER = (_const("kThreads"), _const("kChunkCols"),
                               _const("kMaxCluster"))
+SMEM, ROW_STRIDE, QCAP, MAX_READS = (_const("kSmemBytes"),
+                                     _const("kRowStride"), _const("kQCap"),
+                                     _const("kMaxReads"))
+H100_SMS = 132  # the SMs of an H100 SXM, which sets the passes a CTA
 
 
 def kernel_geometry(L):
@@ -310,6 +314,90 @@ def test_kernel_geometry_from_the_source(L, want):
     assert kernel_geometry(L) == want
 
 
+def staging_rounds(n_pos, L_read, valid, maxlen, sms=H100_SMS):
+    """The rounds in which each CTA of the kernel's launch stages its
+    damage-table rows, as csrc/euka.cu's range pass decides them: 1 where
+    the rows of all its valid columns fit its staged slots at once, 2
+    where they fit one row class at a time (a warp a row, G = 32; a row's
+    class 0 where its 5' rows lie no farther from its columns than its 3'
+    rows), 0 where it reads them through L1 or holds no valid column."""
+    B, L = n_pos.shape
+    G, S, nc = kernel_geometry(L)
+    rpp = THREADS // G
+    if nc > 1:
+        P = 2
+    else:
+        P = MAX_READS // rpp
+        while P > 1 and -(-B // (rpp * P)) * nc < 3 * sms:
+            P //= 2
+    R = rpp * P
+    fixed = (R * (16 + 1 + 2 * MAX_CLUSTER) * 8 + QCAP * 16
+             + (THREADS // 32) * 8 * 4 + R * 4)
+    cap = min(((SMEM - fixed) // (8 * ROW_STRIDE)) & ~3,
+              (2 * maxlen + 3) & ~3)
+    n = n_pos.astype(np.int64)
+    l5 = np.clip(n, 0, maxlen - 1)
+    wrap = (L_read[:, None].astype(np.int64) - n - 1 + 2**31) % 2**32 - 2**31
+    l3 = np.clip(wrap, 0, maxlen - 1)
+    col = np.broadcast_to(np.arange(L)[None, :], n.shape)
+
+    def rows(v, x):  # the table rows x of the valid columns v
+        return (int(x[v].max()) - int(x[v].min()) + 1) if v.any() else 0
+
+    rounds = []
+    for b0 in range(0, B, R):
+        for k in range(nc):
+            at = (slice(b0, b0 + R), slice(k * S, min(L, k * S + S)))
+            v, a5, a3, c = valid[at], l5[at], l3[at], col[at]
+            d5 = np.where(v, np.abs(a5 - c), -1).max(1)
+            d3 = np.where(v, np.abs(a3 - c), -1).max(1)
+            both = rows(v, a5) + rows(v, a3)
+            cls = [v & (np.where(d5 <= d3, 0, 1) == j)[:, None]
+                   for j in (0, 1)]
+            if both == 0:
+                rounds.append(0)
+            elif both <= cap:
+                rounds.append(1)
+            elif G == 32 and all(rows(m, a5) + rows(m, a3) <= cap
+                                 for m in cls):
+                rounds.append(2)
+            else:
+                rounds.append(0)
+    return np.array(rounds)
+
+
+@pytest.mark.parametrize("batch", ["1000bp_forward", "1000bp_both",
+                                   "euka_calls"])
+def test_staging_rounds_model_at_the_smoke_batches(batch):
+    """The kernel's staging decision (staging_rounds, a model of its range
+    pass) on chip_smoke.py's batches: the synthetic 1,000-bp reads stage
+    every CTA in one round when all are forward, and every CTA in one or
+    two rounds (some in two, none through L1) when half are reverse;
+    euka's call shape (64-bp reads of both orientations) in one."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+    from vgan_tpu_torch import euka_ab
+
+    tables = euka_ab.damage_tables(torch.device("cpu"))
+    if batch == "euka_calls":
+        args = euka_ab.euka_shape_args(tables)
+    else:
+        args = cs.synthetic_euka_args(tables, cs.EUKA_LONG_B, cs.EUKA_LONG_L)
+        if batch == "1000bp_both":
+            args = cs.both_orientations(args)
+    n_pos, L_read, valid = (args[i].numpy() for i in (3, 4, 6))
+    got = staging_rounds(n_pos, L_read, valid, args[7].shape[0])
+    assert got.size > 0
+    if batch == "1000bp_both":
+        assert (got >= 1).all() and (got == 2).any()
+    else:
+        assert (got == 1).all()
+
+
 def _c_params(fn):
     block = SRC[SRC.index('extern "C" {'):]
     m = re.search(r"int\s+" + fn + r"\s*\(([^)]*)\)\s*\{", block)
@@ -319,7 +407,6 @@ def _c_params(fn):
 
 @pytest.mark.parametrize("fn,argtypes", [
     ("euka_score_launch", _native.EUKA_SCORE_ARGTYPES),
-    ("euka_score_launch_opts", _native.EUKA_SCORE_OPTS_ARGTYPES),
     ("euka_score_config", _native.EUKA_CONFIG_ARGTYPES),
 ])
 def test_kernel_source_exports_the_bound_symbols(fn, argtypes):

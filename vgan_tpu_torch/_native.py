@@ -251,11 +251,7 @@ EUKA_SCORE_ARGTYPES = [
     _VP,                       # stream
 ]
 """The argument types of euka_score_launch."""
-EUKA_SCORE_OPTS_ARGTYPES = (EUKA_SCORE_ARGTYPES[:-1]
-                            + [_I32]  # opts (csrc/euka.cu)
-                            + EUKA_SCORE_ARGTYPES[-1:])
-"""The argument types of euka_score_launch_opts."""
-EUKA_CONFIG_ARGTYPES = [_I64, _I32, _I32, _VP]  # B, L, opts, out int32[11]
+EUKA_CONFIG_ARGTYPES = [_I64, _I32, _VP]  # B, L, out int32[11]
 """The argument types of euka_score_config."""
 
 
@@ -314,12 +310,19 @@ def haplocart_lib() -> ctypes.CDLL:
                       "hc_node_scores_launch", HC_NODE_SCORES_ARGTYPES)
 
 
-def type_euka(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Types a build of csrc/euka.cu's C entry points: euka_score_launch
-    (every build), euka_score_launch_opts and euka_score_config (where
-    the build has them)."""
+def euka_build(name: str, flags: List[str], src: str = EUKA_SRC
+               ) -> ctypes.CDLL:
+    """`src` (by default csrc/euka.cu) built with nvcc for sm_90a and the
+    extra `flags` as library `name`, its entry points typed:
+    euka_score_launch, and euka_score_config where the source has it.
+    Besides the library (no flags): the builds for measurement and tests
+    (-DVGAN_EUKA_PHASE_CLOCKS, -DVGAN_EUKA_TABLES_L1,
+    -DVGAN_EUKA_SCALAR_LOADS, -DVGAN_EUKA_MIN_BLOCKS=N, ptxas levels) and
+    other commits' sources."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    nvcc = _find_tool("nvcc", [os.path.join(cuda_home, "bin", "nvcc")])
+    lib = ctypes.CDLL(_build(name, nvcc, NVCC_FLAGS + list(flags), [src], []))
     for fn, argtypes in (("euka_score_launch", EUKA_SCORE_ARGTYPES),
-                         ("euka_score_launch_opts", EUKA_SCORE_OPTS_ARGTYPES),
                          ("euka_score_config", EUKA_CONFIG_ARGTYPES)):
         if fn == "euka_score_launch" or hasattr(lib, fn):
             getattr(lib, fn).restype = _I32
@@ -334,13 +337,9 @@ def euka_clocks_lib() -> ctypes.CDLL:
     phase (see the source)."""
     lib = _loaded.get("euka_clocks")
     if lib is None:
-        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        nvcc = _find_tool("nvcc", [os.path.join(cuda_home, "bin", "nvcc")])
-        lib = type_euka(ctypes.CDLL(_build(
-            "vgan_euka_clocks", nvcc,
-            NVCC_FLAGS + ["-DVGAN_EUKA_PHASE_CLOCKS"], [EUKA_SRC], [])))
+        lib = euka_build("vgan_euka_clocks", ["-DVGAN_EUKA_PHASE_CLOCKS"])
         lib.euka_phase_clocks.restype = _I32
-        lib.euka_phase_clocks.argtypes = [_VP]  # out: unsigned long long [19]
+        lib.euka_phase_clocks.argtypes = [_VP]  # out: unsigned long long [20]
         _loaded["euka_clocks"] = lib
     return lib
 
@@ -350,6 +349,6 @@ def euka_lib() -> ctypes.CDLL:
     sm_90a on first use, with its C entry points typed."""
     lib = _loaded.get("euka")
     if lib is None:
-        lib = type_euka(_nvcc_lib("vgan_euka", EUKA_SRC))
+        lib = euka_build("vgan_euka", [])
         _loaded["euka"] = lib
     return lib

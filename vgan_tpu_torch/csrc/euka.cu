@@ -62,14 +62,28 @@
 //   16 lanes reading consecutive rows of a quarter hit 16 bank pairs. A
 //   column reads the four diagonal entries of both rows, then row o of
 //   the table each compare chooses (its diagonal entry reused): 20
-//   8-byte loads. A CTA whose ranges do not fit (long reads of both
-//   orientations in one CTA) reads the same entries through L1.
+//   8-byte loads.
+// * Reads of both orientations: a forward read's 5' rows follow its
+//   columns and its 3' rows lie far from them, a reverse read's the other
+//   way round (euka counts a reverse read's n_pos down). Long reads of
+//   both in one CTA touch two far-apart ranges of each table, more rows
+//   than fit. So the range pass also puts each row in a class (0 where
+//   its 5' rows lie no farther from its columns than its 3' rows, else 1)
+//   and keeps each class's ranges; a CTA whose ranges do not fit but whose
+//   classes' ranges do, each alone, stages and scores them in two rounds,
+//   a class a round (where a warp is a row, G = 32, so that a warp skips
+//   a row of the other class whole). A row is scored whole in one round,
+//   so its sum runs in the same order either way. A CTA whose classes do
+//   not fit either, or that holds no valid column, reads the tables
+//   through L1.
 // * Columns in flight: a lane takes four consecutive columns (16-byte
 //   loads of g, r, q, n_pos and one 4-byte word of valid where the rows
 //   are 16-byte aligned; scalar loads otherwise), G = 8, 16 or 32 lanes a
 //   row (L <= 32, <= 64, more), a CTA of eight warps P passes of 256 / G
-//   rows, the next item's codes loaded before the row's lane sum. 80
-//   registers a thread, three CTAs (24 warps) an SM.
+//   rows. An item (a lane's four columns of a pass's row) starts the next
+//   item's loads after its row sum: a second register buffer, to start
+//   them before the item's scoring, spills and measured slower (PERF.md).
+//   80 registers a thread, three CTAs (24 warps) an SM.
 // * Long rows are split over a thread-block cluster: a row of more than
 //   128 columns takes nc = min(8, ceil(L / 128)) CTAs, each a span of
 //   ceil(L / 1,024) x 128 of its columns, for the same 16 rows; so a
@@ -85,7 +99,8 @@
 //   butterfly of xor shuffles adds the G lanes of a row, and rank 0 adds
 //   the spans' partials in rank order; no atomics. G, the spans and the
 //   cluster size depend only on L, so a row gives the same bits in any
-//   batch, at any place in it (and padded with invalid columns).
+//   batch, at any place in it (and padded with invalid columns), through
+//   staged or L1 tables, in one round or two.
 // * Exactness: max(post, 1e-300) keeps a NaN (a compare that fails keeps
 //   post), as jnp.maximum does; CUDA's fmax would drop it. A NaN diagonal
 //   fails the compare and takes the 3' row, as the plain version's where()
@@ -95,6 +110,12 @@
 //   kernel rounds otherwise than torch's einsum and logsumexp: it agrees
 //   with the plain version to rtol 1e-12, not bit for bit. Every index
 //   clamps with min / max (clamp_index), around a ptxas fault of CUDA 12.9.
+//
+// Builds for measurement and tests only (nvcc -D...; the results do not
+// change): VGAN_EUKA_PHASE_CLOCKS (clock64 phases, euka_phase_clocks),
+// VGAN_EUKA_TABLES_L1 (every CTA reads the tables through L1),
+// VGAN_EUKA_SCALAR_LOADS (no 16-byte code loads), VGAN_EUKA_MIN_BLOCKS=N
+// (the registers sized for N CTAs an SM).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -108,13 +129,21 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// CTAs an SM the registers are sized for: 3, at most 80 registers a
-// thread (-DVGAN_EUKA_MIN_BLOCKS=4, 64 registers and more spills, is a
-// measurement build for vgan_tpu_torch/euka_ab.py --flags)
+// CTAs an SM the registers are sized for: 3, at most 80 registers a thread
 #ifndef VGAN_EUKA_MIN_BLOCKS
 #define VGAN_EUKA_MIN_BLOCKS 3
 #endif
 constexpr int kMinBlocks = VGAN_EUKA_MIN_BLOCKS;
+#ifdef VGAN_EUKA_TABLES_L1
+constexpr bool kTablesL1 = true;
+#else
+constexpr bool kTablesL1 = false;
+#endif
+#ifdef VGAN_EUKA_SCALAR_LOADS
+constexpr bool kScalarLoads = true;
+#else
+constexpr bool kScalarLoads = false;
+#endif
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxReads = 32;   // rows a CTA
 constexpr int kMaxCluster = 8;  // CTAs a row's columns split over (portable)
@@ -122,10 +151,6 @@ constexpr int kChunkCols = 128;  // columns 32 lanes take at once (4 a lane)
 constexpr int kSmemBytes = 57344;  // dynamic shared memory a CTA
 constexpr int kRowStride = 17;  // doubles a staged row takes (16 + 1 pad)
 constexpr int kQCap = 128;      // qtab entries staged as (1 - qv, qv / 3)
-// euka_score_launch_opts' bits
-constexpr int kOptGlobalTables = 1;  // read the tables through L1 always
-constexpr int kOptScalarLoads = 2;   // no vector code loads
-constexpr int kOptPassShift = 8;     // bits 8..15: passes (0: the launcher's)
 // dna codes (vgan_tpu_torch/utils/dna.py)
 constexpr int kN = 4, kGap = 5, kSoft = 6, kRare = 7;
 // the constant terms, as Python's math.log gives them
@@ -137,17 +162,17 @@ constexpr double kMatchM2 = -0x1.2dee4fc0e1ffcp-2;     // log(1 - 0.25536)
 constexpr double kMismatchM2 = -0x1.5d75f233de14fp+0;  // log 0.25536
 
 #ifdef VGAN_EUKA_PHASE_CLOCKS
-// Built with -DVGAN_EUKA_PHASE_CLOCKS (a build for measurement only):
-// cycles summed over CTAs (thread 0) of [0] the prologue and the range
+// Cycles summed over CTAs (thread 0) of [0] the prologue and the range
 // pass (the first codes' loads), [1] the range reduction, [2] the
 // staging, [3] the items, [4] rank 0's wait for its cluster; over items
-// (lane 0 of each warp) of [5] the classes and the softclip count (the
-// wait for the item's codes), [6] the table reads, the 4 x 4 products,
-// the logs and the row sums, [7] the row's lane sum and the next item's
+// (lane 0 of each warp) of [5] the wait for the item's codes, the classes
+// and the softclip count, [6] the table reads, the 4 x 4 products, the
+// logs and the row sums, [7] the row's lane sum and the next item's
 // loads; then [8] CTAs, [9] items and [10] CTAs that staged their rows
-// counted; [11 + k] the items' cycles of rank k's CTAs (k < 8).
-// euka_phase_clocks reads and clears them.
-constexpr int kClocks = 19;
+// counted; [11 + k] the items' cycles of rank k's CTAs (k < 8); [19] CTAs
+// that staged their rows in two rounds. euka_phase_clocks reads and
+// clears them.
+constexpr int kClocks = 20;
 __device__ unsigned long long g_euka_clocks[kClocks];
 #define EUKA_STAMP(t) const long long t = clock64()
 #else
@@ -184,7 +209,6 @@ struct Geo {
   int S;     // columns of a row a CTA takes (its span), a multiple of 4 G
   int nc;    // CTAs a cluster: a row's columns in nc spans
   int cap;   // staged table rows a CTA holds, a multiple of 4
-  int force_global;  // read the tables through L1 (kOptGlobalTables)
 };
 
 // A CTA's shared memory (kSmemBytes): the staged rows fill what the
@@ -196,13 +220,16 @@ struct Smem {
   double* part;     // [kMaxCluster, R, 2]: each span's (m1, m2) partial
                     // sums of the rows, written into rank 0's
   double2* qt;      // [kQCap]: (1 - qv, qv / 3) of qtab's entries
-  int* red;         // [kWarps, 4]: the warps' table-row ranges
+  int* red;         // [kWarps, 8]: the warps' table-row ranges by class
+  int* win;         // [9]: the rounds, then each round's (lo5, n5, lo3, n3)
+  int* cls;         // [R]: a row's class (0 or 1)
   int quarter;      // cap / 4
 };
 
 // The bytes of Smem's arrays besides the rows, for R rows a CTA.
 __host__ __device__ constexpr int smem_fixed(int R) {
-  return R * (16 + 1 + 2 * kMaxCluster) * 8 + kQCap * 16 + kWarps * 4 * 4;
+  return R * (16 + 1 + 2 * kMaxCluster) * 8 + kQCap * 16 + kWarps * 8 * 4 +
+         9 * 4 + R * 4;
 }
 
 __device__ __forceinline__ Smem carve(unsigned char* raw, int cap, int R) {
@@ -213,6 +240,8 @@ __device__ __forceinline__ Smem carve(unsigned char* raw, int cap, int R) {
   sm.part = sm.rare + R;
   sm.qt = reinterpret_cast<double2*>(sm.part + 2 * kMaxCluster * R);
   sm.red = reinterpret_cast<int*>(sm.qt + kQCap);
+  sm.win = sm.red + 8 * kWarps;
+  sm.cls = sm.win + 9;
   sm.quarter = cap / 4;
   return sm;
 }
@@ -260,6 +289,20 @@ __device__ __forceinline__ void cp_async8(double* dst, const double* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
                "l"(src)
                : "memory");
+}
+
+// Copies rows lo5.. (n5 of them) of sub5p, then rows lo3.. (n3) of sub3p
+// into the staged slots 0.., every copy in flight at once, then one wait.
+__device__ __forceinline__ void stage(const Args& a, const Smem& sm, int lo5,
+                                      int n5, int lo3, int n3) {
+  for (int i = threadIdx.x; i < 16 * (n5 + n3); i += kThreads) {
+    const int s = i >> 4, e = i & 15;
+    cp_async8(sm.rows + slot_index(sm, s) + e,
+              s < n5 ? a.sub5p + 16 * (long long)(lo5 + s) + e
+                     : a.sub3p + 16 * (long long)(lo3 + s - n5) + e);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
 }
 
 // Four int32 at p, a 16-byte boundary.
@@ -422,8 +465,8 @@ __device__ __forceinline__ void score_column(
   }
   const int l5 = clamp_index(nv, a.maxlen);
   const int l3 = l3_row(Lr, nv, a.maxlen);
-  // a column of another class reads slot 0 (or its clamped table rows)
-  // and drops the value
+  // a column of another class reads slot 0 (staged: the round's windows
+  // are not empty) or its clamped table rows, and drops the value
   const int k5 = kStaged ? (acgt ? l5 - lo5 : 0) : l5;
   const int k3 = kStaged ? (acgt ? n5 + l3 - lo3 : 0) : l3;
   const double s = acgt_sum<kStaged>(a, sm, pre + 4 * clamp_index(gv, 4), k5,
@@ -454,12 +497,16 @@ __device__ __forceinline__ void score_column(
   }
 }
 
-// Scores the CTA's items (a pass's row, a chunk of its span) from `cur`
-// on, adding into the row sums; the tables staged (kStaged) or not.
-template <bool kVec, bool kStaged>
+// Scores the CTA's items (a pass's row, a chunk of its span), adding into
+// the row sums: every item, or (kByClass) those whose rows are of class
+// `cls`; the tables staged (kStaged: rows lo5.. of sub5p, n5 of them, and
+// lo3.. of sub3p) or not. `cur` holds the first item's codes where
+// `have_cur`.
+template <bool kVec, bool kStaged, bool kByClass>
 __device__ void run_items(const Args& a, const Geo& geo, const Smem& sm,
-                          double* part, Codes cur, long long b0, int rank,
-                          int c_lo, int c_hi, int lo5, int n5, int lo3) {
+                          double* part, Codes cur, bool have_cur, int cls,
+                          long long b0, int rank, int c_lo, int c_hi, int lo5,
+                          int n5, int lo3) {
   const int lane = threadIdx.x & 31;
   const int G = geo.G;
   const int gl = lane & (G - 1);
@@ -470,11 +517,26 @@ __device__ void run_items(const Args& a, const Geo& geo, const Smem& sm,
   const int chunks = geo.S / (4 * G);
   const int items = geo.P * chunks;
   const bool qs = a.n_q <= kQCap;
+  // the first item at or after `it` (at a row's first chunk, or inside a
+  // row of the class) whose row is of the class; warp-uniform, since
+  // classes split a CTA's rows only where a warp is a row
+  auto next_item = [&](int it) {
+    if (kByClass)
+      while (it < items && sm.cls[(it / chunks) * geo.rpp + slot0] != cls)
+        it += chunks;
+    return it;
+  };
+  int it = next_item(0);
+  if ((it != 0 || !have_cur) && it < items) {
+    const int p = it / chunks, ch = it - p * chunks;
+    load_codes<kVec>(a, b0 + p * geo.rpp + slot0, c_lo + ch * 4 * G + 4 * gl,
+                     c_hi, true, cur);
+  }
   double s1 = 0.0, s2 = 0.0;
   // the row's softclips in its span before this item's chunk (the
   // group's), and before the span (-1: not counted yet)
   int carry = 0, base = rank == 0 ? 0 : -1;
-  for (int it = 0; it < items; ++it) {
+  while (it < items) {
     EUKA_STAMP(t0);
     const int p = it / chunks, ch = it - p * chunks;
     const int rs = p * geo.rpp + slot0;  // the row's slot in the CTA
@@ -540,11 +602,15 @@ __device__ void run_items(const Args& a, const Geo& geo, const Smem& sm,
       carry = 0;
       base = rank == 0 ? 0 : -1;
     }
-    if (it + 1 < items) {
-      const int pn = (it + 1) / chunks, chn = it + 1 - pn * chunks;
+    // the next item's loads (started here rather than before this item's
+    // scoring: a second register buffer of codes spills, PERF.md)
+    const int it_next = next_item(it + 1);
+    if (it_next < items) {
+      const int pn = it_next / chunks, chn = it_next - pn * chunks;
       load_codes<kVec>(a, b0 + pn * geo.rpp + slot0,
                        c_lo + chn * 4 * G + 4 * gl, c_hi, true, cur);
     }
+    it = it_next;
 #ifdef VGAN_EUKA_PHASE_CLOCKS
     EUKA_STAMP(t3);
     if (lane == 0) {
@@ -554,6 +620,19 @@ __device__ void run_items(const Args& a, const Geo& geo, const Smem& sm,
       atomicAdd(&g_euka_clocks[9], 1ull);
     }
 #endif
+  }
+}
+
+// Folds a row's table-row ranges (lane-local) into its class's: lo / hi
+// [class * 2 + table].
+__device__ __forceinline__ void fold_row(int k, int rlo5, int rhi5, int rlo3,
+                                         int rhi3, int* lo, int* hi) {
+  if (k == 0) {
+    lo[0] = min(lo[0], rlo5), hi[0] = max(hi[0], rhi5);
+    lo[1] = min(lo[1], rlo3), hi[1] = max(hi[1], rhi3);
+  } else {
+    lo[2] = min(lo[2], rlo5), hi[2] = max(hi[2], rhi5);
+    lo[3] = min(lo[3], rlo3), hi[3] = max(hi[3], rhi3);
   }
 }
 
@@ -601,9 +680,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
   }
 
-  // the range pass: the table rows the CTA's valid columns touch (two
-  // items' n_pos and valid loaded at once)
-  int lo5 = INT_MAX, hi5 = INT_MIN, lo3 = INT_MAX, hi3 = INT_MIN;
+  // the range pass: each row's class (0 where its valid columns' 5' rows
+  // lie no farther from the columns than their 3' rows, as a forward
+  // read's do, else 1) and each class's 5' and 3' table rows (two items'
+  // n_pos and valid loaded at once)
+  int lo[4] = {INT_MAX, INT_MAX, INT_MAX, INT_MAX};
+  int hi[4] = {INT_MIN, INT_MIN, INT_MIN, INT_MIN};
+  int rlo5 = INT_MAX, rhi5 = INT_MIN, rlo3 = INT_MAX, rhi3 = INT_MIN;
+  int d5 = -1, d3 = -1;  // the row's farthest 5' and 3' rows from a column
   for (int it0 = 0; it0 < items; it0 += 2) {
     Codes x[2];
 #pragma unroll
@@ -615,71 +699,134 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       else if (it < items)
         load_codes<kVec>(a, b0 + p * geo.rpp + slot0,
                          c_lo + ch * 4 * G + 4 * gl, c_hi, false, x[u]);
-      else
-        x[u].v = 0;
     }
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
+      const int it = it0 + u;
+      if (it >= items) break;
+      const int p = it / chunks, ch = it - p * chunks;
+      const int c0 = c_lo + ch * 4 * G + 4 * gl;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if ((x[u].v >> (8 * j)) & 0xffu) {
           const int l5 = clamp_index(x[u].n[j], a.maxlen);
           const int l3 = l3_row(x[u].Lr, x[u].n[j], a.maxlen);
-          lo5 = min(lo5, l5);
-          hi5 = max(hi5, l5);
-          lo3 = min(lo3, l3);
-          hi3 = max(hi3, l3);
+          rlo5 = min(rlo5, l5);
+          rhi5 = max(rhi5, l5);
+          rlo3 = min(rlo3, l3);
+          rhi3 = max(rhi3, l3);
+          d5 = max(d5, abs(l5 - (c0 + j)));
+          d3 = max(d3, abs(l3 - (c0 + j)));
         }
+      }
+      if (ch == chunks - 1) {  // the row's span is done: its class
+        for (int o = G >> 1; o > 0; o >>= 1) {
+          d5 = max(d5, __shfl_xor_sync(kFull, d5, o));
+          d3 = max(d3, __shfl_xor_sync(kFull, d3, o));
+        }
+        const int k = d5 <= d3 ? 0 : 1;
+        fold_row(k, rlo5, rhi5, rlo3, rhi3, lo, hi);
+        if (gl == 0) sm.cls[p * geo.rpp + slot0] = k;
+        rlo5 = rlo3 = INT_MAX;
+        rhi5 = rhi3 = INT_MIN;
+        d5 = d3 = -1;
       }
     }
   }
-  lo5 = __reduce_min_sync(kFull, lo5);
-  hi5 = __reduce_max_sync(kFull, hi5);
-  lo3 = __reduce_min_sync(kFull, lo3);
-  hi3 = __reduce_max_sync(kFull, hi3);
-  if (lane == 0) {
-    sm.red[4 * warp] = lo5;
-    sm.red[4 * warp + 1] = hi5;
-    sm.red[4 * warp + 2] = lo3;
-    sm.red[4 * warp + 3] = hi3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lo[i] = __reduce_min_sync(kFull, lo[i]);
+    hi[i] = __reduce_max_sync(kFull, hi[i]);
+    if (lane == 0) {
+      sm.red[8 * warp + i] = lo[i];
+      sm.red[8 * warp + 4 + i] = hi[i];
+    }
   }
   EUKA_STAMP(k1);
   __syncthreads();
-  for (int w = 0; w < kWarps; ++w) {
-    lo5 = min(lo5, sm.red[4 * w]);
-    hi5 = max(hi5, sm.red[4 * w + 1]);
-    lo3 = min(lo3, sm.red[4 * w + 2]);
-    hi3 = max(hi3, sm.red[4 * w + 3]);
-  }
-  const int n5 = hi5 >= lo5 ? hi5 - lo5 + 1 : 0;
-  const int n3 = hi3 >= lo3 ? hi3 - lo3 + 1 : 0;
-  const bool staged = !geo.force_global && n5 + n3 <= geo.cap;
-  EUKA_STAMP(k2);
-  if (staged) {  // every copy in flight at once, then one wait
-    for (int i = tid; i < 16 * (n5 + n3); i += kThreads) {
-      const int s = i >> 4, e = i & 15;
-      cp_async8(sm.rows + slot_index(sm, s) + e,
-                s < n5 ? a.sub5p + 16 * (long long)(lo5 + s) + e
-                       : a.sub3p + 16 * (long long)(lo3 + s - n5) + e);
+  // thread 0 decides the rounds of staged rows: 1 (both classes), 2 (a
+  // class a round), or 0 (the tables through L1); their windows wait in
+  // shared memory, out of the items' registers
+  if (tid == 0) {
+    int n[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      for (int w = 1; w < kWarps; ++w) {
+        lo[i] = min(lo[i], sm.red[8 * w + i]);
+        hi[i] = max(hi[i], sm.red[8 * w + 4 + i]);
+      }
+      n[i] = hi[i] >= lo[i] ? hi[i] - lo[i] + 1 : 0;
     }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    // both classes' rows together
+    const int lo5 = min(lo[0], lo[2]), hi5 = max(hi[0], hi[2]);
+    const int lo3 = min(lo[1], lo[3]), hi3 = max(hi[1], hi[3]);
+    const int n5 = hi5 >= lo5 ? hi5 - lo5 + 1 : 0;
+    const int n3 = hi3 >= lo3 ? hi3 - lo3 + 1 : 0;
+    int rounds = 0;
+    if (!kTablesL1 && n5 + n3 > 0) {
+      if (n5 + n3 <= geo.cap)
+        rounds = 1;
+      else if (G == 32 && n[0] + n[1] <= geo.cap && n[2] + n[3] <= geo.cap)
+        rounds = 2;
+    }
+    sm.win[0] = rounds;
+    if (rounds == 1) {
+      sm.win[1] = lo5, sm.win[2] = n5, sm.win[3] = lo3, sm.win[4] = n3;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        sm.win[1 + 2 * i] = lo[i], sm.win[2 + 2 * i] = n[i];
+    }
   }
   __syncthreads();
-  EUKA_STAMP(k3);
+  const int rounds = sm.win[0];
+  EUKA_STAMP(k2);
   // a split row's partials go into rank 0's slots of this rank: once
   // every CTA of the cluster has started (the barrier's first phase,
   // arrived at on entry), the rank's pointer into rank 0's memory
   double* part = sm.part;
-  if (split) {
-    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-    part = cg::this_cluster().map_shared_rank(sm.part, 0) + 2 * R * rank;
+  auto join_cluster = [&]() {
+    if (split) {
+      asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+      part = cg::this_cluster().map_shared_rank(sm.part, 0) + 2 * R * rank;
+    }
+  };
+#ifdef VGAN_EUKA_PHASE_CLOCKS
+  long long staging = 0;  // the rounds' staging, inside [k3, k4)
+#endif
+  // each call site once, so that `cur` dies with the first round
+  EUKA_STAMP(k3);
+  if (rounds == 0) {
+    join_cluster();
+    run_items<kVec, false, false>(a, geo, sm, part, cur, true, 0, b0, rank,
+                                  c_lo, c_hi, 0, 0, 0);
+  } else {
+    stage(a, sm, sm.win[1], sm.win[2], sm.win[3], sm.win[4]);
+    EUKA_STAMP(k3b);
+    join_cluster();
+    if (rounds == 1) {
+      run_items<kVec, true, false>(a, geo, sm, part, cur, true, 0, b0, rank,
+                                   c_lo, c_hi, sm.win[1], sm.win[2],
+                                   sm.win[3]);
+    } else {
+      run_items<kVec, true, true>(a, geo, sm, part, cur, true, 0, b0, rank,
+                                  c_lo, c_hi, sm.win[1], sm.win[2],
+                                  sm.win[3]);
+      __syncthreads();  // every read of round 0's rows done
+      EUKA_STAMP(k3c);
+      stage(a, sm, sm.win[5], sm.win[6], sm.win[7], sm.win[8]);
+      EUKA_STAMP(k3d);
+      run_items<kVec, true, true>(a, geo, sm, part, Codes{}, false, 1, b0,
+                                  rank, c_lo, c_hi, sm.win[5], sm.win[6],
+                                  sm.win[7]);
+#ifdef VGAN_EUKA_PHASE_CLOCKS
+      staging += k3d - k3c;
+#endif
+    }
+#ifdef VGAN_EUKA_PHASE_CLOCKS
+    staging += k3b - k3;
+#endif
   }
-  if (staged)
-    run_items<kVec, true>(a, geo, sm, part, cur, b0, rank, c_lo, c_hi, lo5,
-                          n5, lo3);
-  else
-    run_items<kVec, false>(a, geo, sm, part, cur, b0, rank, c_lo, c_hi, lo5,
-                           n5, lo3);
   EUKA_STAMP(k4);
 
   if (split) {
@@ -707,26 +854,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   if (tid == 0) {
     atomicAdd(&g_euka_clocks[0], (unsigned long long)(k1 - k0));
     atomicAdd(&g_euka_clocks[1], (unsigned long long)(k2 - k1));
-    atomicAdd(&g_euka_clocks[2], (unsigned long long)(k3 - k2));
-    atomicAdd(&g_euka_clocks[3], (unsigned long long)(k4 - k3));
+    atomicAdd(&g_euka_clocks[2], (unsigned long long)staging);
+    atomicAdd(&g_euka_clocks[3], (unsigned long long)(k4 - k3 - staging));
     atomicAdd(&g_euka_clocks[4], (unsigned long long)(k5 - k4));
     atomicAdd(&g_euka_clocks[8], 1ull);
-    if (staged) atomicAdd(&g_euka_clocks[10], 1ull);
-    atomicAdd(&g_euka_clocks[11 + rank], (unsigned long long)(k4 - k3));
+    if (rounds > 0) atomicAdd(&g_euka_clocks[10], 1ull);
+    if (rounds == 2) atomicAdd(&g_euka_clocks[19], 1ull);
+    atomicAdd(&g_euka_clocks[11 + rank],
+              (unsigned long long)(k4 - k3 - staging));
   }
 #endif
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 1;
-}
-
-// The launch's shape for B rows of L columns of a table of maxlen rows
-// (opts: euka_score_launch_opts).
-Geo geometry(long long B, int L, int maxlen, int opts) {
+// The launch's shape for B rows of L columns of a table of maxlen rows on
+// a card of `sms` SMs.
+Geo geometry(long long B, int L, int maxlen, int sms) {
   Geo geo{};
   geo.G = L > 64 ? 32 : (L > 32 ? 16 : 8);
   geo.rpp = kThreads / geo.G;
@@ -739,15 +881,11 @@ Geo geometry(long long B, int L, int maxlen, int opts) {
     geo.nc = 1;
     geo.S = 4 * geo.G;
   }
-  const int p_most = kMaxReads / geo.rpp;
-  const int forced = (opts >> kOptPassShift) & 0xff;
-  if (forced > 0) {
-    geo.P = forced < p_most ? forced : p_most;
-  } else if (geo.nc > 1) {
+  if (geo.nc > 1) {
     geo.P = 2;  // two passes' rows fit the staged rows at 1,000 bp
   } else {  // the most rows a CTA that still leave ~3 CTAs an SM
-    geo.P = p_most;
-    const long long want = 3LL * sm_count();
+    geo.P = kMaxReads / geo.rpp;
+    const long long want = 3LL * sms;
     while (geo.P > 1 &&
            (B + geo.rpp * geo.P - 1) / (geo.rpp * geo.P) * geo.nc < want)
       geo.P >>= 1;
@@ -758,30 +896,36 @@ Geo geometry(long long B, int L, int maxlen, int opts) {
                   (8 * kRowStride) & ~3;
   const int both = (2 * maxlen + 3) & ~3;
   geo.cap = fit < both ? fit : both;
-  geo.force_global = (opts & kOptGlobalTables) != 0;
   return geo;
 }
 
 // The kernels' attributes (dynamic shared memory over 48 KB, all of the
-// unified memory as shared), set once a device.
-cudaError_t configure() {
-  static bool done[64];
+// unified memory as shared), set once a device; *sms: its SM count, read
+// then.
+cudaError_t configure(int* sms) {
+  static int count[64];
   int dev = 0;
-  cudaGetDevice(&dev);
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (done[dev]) return cudaSuccess;
-  const void* fns[2] = {(const void*)euka_score_kernel<true>,
-                        (const void*)euka_score_kernel<false>};
-  for (const void* f : fns) {
-    cudaError_t err = cudaFuncSetAttribute(
-        f, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (count[dev] == 0) {
+    const void* fns[2] = {(const void*)euka_score_kernel<true>,
+                          (const void*)euka_score_kernel<false>};
+    for (const void* f : fns) {
+      err = cudaFuncSetAttribute(
+          f, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      if (err != cudaSuccess) return err;
+      err = cudaFuncSetAttribute(
+          f, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+      if (err != cudaSuccess) return err;
+    }
+    int n = 0;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(f,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return err;
+    count[dev] = n > 0 ? n : 1;
   }
-  done[dev] = true;
+  *sms = count[dev];
   return cudaSuccess;
 }
 
@@ -793,34 +937,35 @@ bool aligned(const void* p, uintptr_t n) {
 
 extern "C" {
 
-// (il [B], nl [B]) of B rows of L columns on `stream`, with options
-// `opts`: bit 0 reads the damage tables through L1 in every CTA, bit 1
-// loads the codes one column at a time, bits 8..15 force the passes a CTA
-// (rows a CTA = 256 / G times it; 0: the launcher's choice). The results
-// do not depend on opts. Arguments as euka_score_launch's.
-int euka_score_launch_opts(const int32_t* g, const int32_t* r,
-                           const int32_t* q, const int32_t* n_pos,
-                           const int32_t* L_read, const double* pair_dist,
-                           const uint8_t* valid, const double* sub5p,
-                           const double* sub3p, int maxlen,
-                           const double* qtab, int n_q, const double* bfreq,
-                           int n_bf, const double* ttr, long long B, int L,
-                           double* il, double* nl, int opts, void* stream) {
+// (il [B], nl [B]) of B rows of L columns on `stream`. g, r, q, n_pos
+// [B, L] and L_read [B] int32; pair_dist [B] f64; valid [B, L] uint8;
+// sub5p, sub3p [maxlen, 4, 4], qtab [n_q], bfreq [n_bf], ttr [4, 4] f64.
+// All device pointers, contiguous; il and nl may be two rows of one
+// [2, B] tensor. B = 0 launches nothing. Returns the launch's CUDA error
+// (0 = launched), or cudaErrorInvalidValue for arguments it cannot take.
+int euka_score_launch(const int32_t* g, const int32_t* r, const int32_t* q,
+                      const int32_t* n_pos, const int32_t* L_read,
+                      const double* pair_dist, const uint8_t* valid,
+                      const double* sub5p, const double* sub3p, int maxlen,
+                      const double* qtab, int n_q, const double* bfreq,
+                      int n_bf, const double* ttr, long long B, int L,
+                      double* il, double* nl, void* stream) {
   if (B < 0 || L < 0 || maxlen < 1 || n_q < 1 || n_bf < 1)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  cudaError_t err = configure();
+  int sms = 0;
+  cudaError_t err = configure(&sms);
   if (err != cudaSuccess) return (int)err;
-  const Geo geo = geometry(B, L, maxlen, opts);
+  const Geo geo = geometry(B, L, maxlen, sms);
   const long long R = (long long)geo.rpp * geo.P;
   const long long ctas = (B + R - 1) / R * geo.nc;
   if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const Args a{g,     r,    q,     n_pos, L_read, pair_dist, valid,
                sub5p, sub3p, maxlen, qtab, n_q,   bfreq,     n_bf,
                ttr,   B,    L,     il,    nl};
-  const bool vec = !(opts & kOptScalarLoads) && L % 4 == 0 &&
-                   aligned(g, 16) && aligned(r, 16) && aligned(q, 16) &&
-                   aligned(n_pos, 16) && aligned(valid, 4);
+  const bool vec = !kScalarLoads && L % 4 == 0 && aligned(g, 16) &&
+                   aligned(r, 16) && aligned(q, 16) && aligned(n_pos, 16) &&
+                   aligned(valid, 4);
   const void* fn = vec ? (const void*)euka_score_kernel<true>
                        : (const void*)euka_score_kernel<false>;
   cudaLaunchConfig_t cfg{};
@@ -841,36 +986,19 @@ int euka_score_launch_opts(const int32_t* g, const int32_t* r,
   return (int)cudaGetLastError();
 }
 
-// (il [B], nl [B]) of B rows of L columns on `stream`. g, r, q, n_pos
-// [B, L] and L_read [B] int32; pair_dist [B] f64; valid [B, L] uint8;
-// sub5p, sub3p [maxlen, 4, 4], qtab [n_q], bfreq [n_bf], ttr [4, 4] f64.
-// All device pointers, contiguous; il and nl may be two rows of one
-// [2, B] tensor. B = 0 launches nothing. Returns the launch's CUDA error
-// (0 = launched), or cudaErrorInvalidValue for arguments it cannot take.
-int euka_score_launch(const int32_t* g, const int32_t* r, const int32_t* q,
-                      const int32_t* n_pos, const int32_t* L_read,
-                      const double* pair_dist, const uint8_t* valid,
-                      const double* sub5p, const double* sub3p, int maxlen,
-                      const double* qtab, int n_q, const double* bfreq,
-                      int n_bf, const double* ttr, long long B, int L,
-                      double* il, double* nl, void* stream) {
-  return euka_score_launch_opts(g, r, q, n_pos, L_read, pair_dist, valid,
-                                sub5p, sub3p, maxlen, qtab, n_q, bfreq, n_bf,
-                                ttr, B, L, il, nl, 0, stream);
-}
-
 // The launch's shape and the card's occupancy for B rows of L columns
-// (damage tables of 1,000 rows) with `opts`, into out[11]: G (lanes a
-// row), nc (CTAs a cluster), S (columns a CTA of a row), P (passes), rows
-// a CTA, CTAs, CTAs an SM (the 16-byte-load kernel's occupancy), its
-// registers a thread, its local (spill) bytes a thread, its dynamic
-// shared bytes a CTA, the staged table rows a CTA holds. Returns a CUDA
-// error (0 = done).
-int euka_score_config(long long B, int L, int opts, int* out) {
+// (damage tables of 1,000 rows), into out[11]: G (lanes a row), nc (CTAs
+// a cluster), S (columns a CTA of a row), P (passes), rows a CTA, CTAs,
+// CTAs an SM (the 16-byte-load kernel's occupancy), its registers a
+// thread, its local (spill) bytes a thread, its dynamic shared bytes a
+// CTA, the staged table rows a CTA holds. Returns a CUDA error (0 =
+// done).
+int euka_score_config(long long B, int L, int* out) {
   if (B < 0 || L < 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = configure();
+  int sms = 0;
+  cudaError_t err = configure(&sms);
   if (err != cudaSuccess) return (int)err;
-  const Geo geo = geometry(B > 0 ? B : 1, L, 1000, opts);
+  const Geo geo = geometry(B > 0 ? B : 1, L, 1000, sms);
   const long long R = (long long)geo.rpp * geo.P;
   cudaFuncAttributes fa{};
   const void* fn = (const void*)euka_score_kernel<true>;
@@ -897,7 +1025,7 @@ int euka_score_config(long long B, int L, int opts, int* out) {
 
 #ifdef VGAN_EUKA_PHASE_CLOCKS
 // The cycles summed since the last call (see g_euka_clocks) into
-// out [19]; then clears them. Returns a CUDA error code.
+// out [20]; then clears them. Returns a CUDA error code.
 int euka_phase_clocks(unsigned long long* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, g_euka_clocks,
                                        sizeof(g_euka_clocks));

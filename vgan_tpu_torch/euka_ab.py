@@ -2,26 +2,26 @@
 against another build of it, for example a parent commit's euka.cu
 unpacked with `git archive`, at euka's shape and at a 1,000-bp batch.
 
-    python -m vgan_tpu_torch.euka_ab OTHER_EUKA_CU [--flags=F,F] [--opts N,N]
+    python -m vgan_tpu_torch.euka_ab OTHER_EUKA_CU [--flags=F,F]
 
 The other source is built as a second library beside the checkout's,
-both at once (with the extra nvcc flags F, written after "=" since they
-start with "-", for example --flags=-DVGAN_EUKA_MIN_BLOCKS=4 on the
-checkout's own euka.cu), and called
-through the same wrapper (score_batch; the C entry point
-euka_score_launch has kept its signature). With --opts, this build is
-also timed on the device alone with each euka_score_launch_opts value
-N (csrc/euka.cu: 1 the tables through L1, 2 scalar code loads, P << 8
-P passes a CTA), checked to give the same bits. The shapes, each made
-from a seed on the card with the checkout's damage-table layout:
+both at once, with the extra nvcc flags F (written after "=" since they
+start with "-"), and called through the same wrapper (score_batch; the
+C entry point euka_score_launch has kept its signature). On the
+checkout's own euka.cu the flags give its measurement builds, for
+example --flags=-DVGAN_EUKA_TABLES_L1 (every CTA reads the damage
+tables through L1), -DVGAN_EUKA_SCALAR_LOADS (no 16-byte code loads) or
+-DVGAN_EUKA_MIN_BLOCKS=4 (the registers sized for four CTAs an SM). The
+shapes, each made from a seed on the card with the checkout's
+damage-table layout:
 
 * euka: B = 4,096 rows of L = 64, 64-bp reads of both orientations (as
   the euka CLI's calls on chip_smoke.py's world);
 * 1,000 bp: chip_smoke.synthetic_euka_args, B = 2,048 forward reads of
   924-1,024 columns in an L = 1,024 bucket (the smoke's batch);
-* 1,000 bp, both orientations: the same with half of the reads reverse
-  (n_pos counting down), whose damage-table rows do not fit the kernel's
-  staged window at this size.
+* 1,000 bp, both orientations: chip_smoke.both_orientations of it, half
+  of the reads reverse (n_pos counting down), whose CTAs stage their
+  table rows in two rounds.
 
 On each, both builds must equal score_batch_plain to rtol 1e-12 (NaN
 where NaN); then each is timed in the order this, other, other, this:
@@ -32,7 +32,6 @@ the card and its power limit.
 """
 from __future__ import annotations
 
-import ctypes
 import os
 import subprocess
 import sys
@@ -46,17 +45,12 @@ REPO = os.path.dirname(_native._PKG_DIR)
 def _load_other(path, flags=()):
     """The euka.cu at `path` built as a second library (its own name in
     _build/) with the extra nvcc `flags`, its entry points typed as the
-    checkout's."""
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    nvcc = _native._find_tool("nvcc",
-                              [os.path.join(cuda_home, "bin", "nvcc")])
-    ours = threading.Thread(target=_native.euka_lib)  # both at once
+    checkout's; the checkout's own library built at the same time."""
+    ours = threading.Thread(target=_native.euka_lib)
     ours.start()
-    lib = ctypes.CDLL(_native._build("vgan_euka_other", nvcc,
-                                     _native.NVCC_FLAGS + list(flags),
-                                     [path], []))
+    lib = _native.euka_build("vgan_euka_other", list(flags), path)
     ours.join()
-    return _native.type_euka(lib)
+    return lib
 
 
 def euka_shape_args(tables, B=4096, L=64, seed=3):
@@ -84,19 +78,6 @@ def euka_shape_args(tables, B=4096, L=64, seed=3):
             t(n_pos, i32), t(np.full(B, L), i32),
             t(np.full(B, 0.03), torch.float64),
             t(np.ones((B, L), bool), torch.bool)) + tuple(tables)
-
-
-def both_orientations(args, seed=4):
-    """`args` with every other read reverse: n_pos = L_read - 1 - the
-    forward position, inside the read."""
-    import torch
-
-    n_pos, L_read, valid = args[3], args[4], args[6]
-    gen = torch.Generator(device=n_pos.device).manual_seed(seed)
-    rev = torch.rand(n_pos.shape[0], generator=gen, device=n_pos.device) < 0.5
-    back = torch.where(valid, L_read[:, None] - 1 - n_pos, n_pos)
-    n_pos = torch.where(rev[:, None], back, n_pos).to(torch.int32)
-    return args[:3] + (n_pos.contiguous(),) + args[4:]
 
 
 def damage_tables(dev, maxlen=1000, seed=2):
@@ -130,13 +111,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(usage=__doc__)
     ap.add_argument("other")
     ap.add_argument("--flags", default="")
-    ap.add_argument("--opts", default="")
     try:
         ns = ap.parse_args(sys.argv[1:] if argv is None else argv)
     except SystemExit:
         return 2
     flags = [f for f in ns.flags.split(",") if f]
-    opts = [int(x, 0) for x in ns.opts.split(",") if x]
     sys.path.insert(0, REPO)
     import chip_smoke as cs
     from .pipelines import euka as ek
@@ -156,7 +135,7 @@ def main(argv=None) -> int:
     long = cs.synthetic_euka_args(tables, cs.EUKA_LONG_B, cs.EUKA_LONG_L)
     shapes = (("euka B=4096 L=64", euka_shape_args(tables)),
               ("1,000 bp B=2048 L=1024", long),
-              ("1,000 bp both orientations", both_orientations(long)))
+              ("1,000 bp both orientations", cs.both_orientations(long)))
 
     def run(name, a):
         _native._loaded["euka"] = libs[name]
@@ -195,17 +174,6 @@ def main(argv=None) -> int:
             line += (f"; this/other on the device "
                      f"{np.mean(dev_ms['this']) / np.mean(dev_ms['other']):.3f}")
         print(line + f"; on {smi}", flush=True)
-        if opts:
-            base = run("this", a)
-            parts = []
-            for o in opts:
-                got = ek.score_batch(*a, opts=o)
-                cs._close(f"{label} opts {o}", got, base, 0.0)
-                ms = [cs.queued_ms(lambda: ek.score_batch(*a, opts=o), 20)
-                      for _ in range(2)]
-                parts.append(f"opts {o}: {txt(ms)}")
-            print(f"{label}: this on the device alone, the same bits, "
-                  + "; ".join(parts) + f" ms; on {smi}", flush=True)
     return 0
 
 

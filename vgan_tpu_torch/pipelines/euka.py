@@ -214,8 +214,7 @@ def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
 
 
 def score_batch(
-    g, r, q, n_pos, L_read, pair_dist, valid, sub5p, sub3p, qtab, bfreq, ttr,
-    opts: int = 0,
+    g, r, q, n_pos, L_read, pair_dist, valid, sub5p, sub3p, qtab, bfreq, ttr
 ):
     """[2, B] f64, (in_clade_lik, not_in_clade_lik) as its rows, of the
     arguments of score_batch_plain, on the device they sit on. CPU
@@ -223,10 +222,7 @@ def score_batch(
     (csrc/euka.cu) once, or raise (no fallback). The kernel agrees with
     the plain version to rounding (rtol 1e-12: it takes the log of a sum
     where the plain version takes a logsumexp of logs, and its sums run
-    in another order), and a row gives the same bits in any batch.
-    `opts` (the card only) forces a path of the kernel for tests and
-    measurements (csrc/euka.cu euka_score_launch_opts; the results do not
-    depend on it)."""
+    in another order), and a row gives the same bits in any batch."""
     dev = g.device
     if dev.type == "cpu":
         return torch.stack(score_batch_plain(g, r, q, n_pos, L_read,
@@ -260,14 +256,11 @@ def score_batch(
     lib = euka_lib()
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        args = ([_ptr(x) for x in i32] + [
-            _ptr(f64[0]), _ptr(ok), _ptr(f64[1]), _ptr(f64[2]), maxlen,
-            _ptr(f64[3]), f64[3].numel(), _ptr(f64[4]), f64[4].numel(),
-            _ptr(f64[5]), B, L, _ptr(out[0]), _ptr(out[1])])
-        if opts:
-            rc = lib.euka_score_launch_opts(*args, opts, stream)
-        else:
-            rc = lib.euka_score_launch(*args, stream)
+        rc = lib.euka_score_launch(
+            *[_ptr(x) for x in i32], _ptr(f64[0]), _ptr(ok), _ptr(f64[1]),
+            _ptr(f64[2]), maxlen, _ptr(f64[3]), f64[3].numel(), _ptr(f64[4]),
+            f64[4].numel(), _ptr(f64[5]), B, L, _ptr(out[0]), _ptr(out[1]),
+            stream)
     if rc != 0:
         raise RuntimeError(f"euka_score kernel launch failed: CUDA error {rc}")
     LAUNCHES["euka_score"] += 1
