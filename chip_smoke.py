@@ -109,7 +109,7 @@ and prints no result):
    <prefix>.npz with soibean_db.baseFreq and tree_dir/<prefix>.new.dnd;
    4,000 64-bp reads of the three leaves with the most private variants
    at 2,400 / 1,200 / 400. `vgan_tpu_torch.cli soibean --device cuda
-   --chains 4 --iter 100000 --burnin 15000` once to warm up and twice
+   --chains 4 --iter 50000 --burnin 7500` once to warm up and twice
    timed: the signature paths must be exactly the planted leaves, every
    output file for k = 1..3 written, and at k = 3 the chain of the
    highest log-likelihood must end on the planted leaves (or their
@@ -180,8 +180,37 @@ and prints no result):
    MULTI_ITER steps (MULTI_BURN of burn-in) against the unsplit batch
    (node ids exact, floats to rtol 1e-10), each half launching the tree
    kernel. A real two-card run needs a machine with two cards.
+9. bench   — the port's bench (vgan_tpu_torch/bench.py, what `cli bench`
+   runs) at full size in this process, after phase 8 and before phase 5,
+   on phase 4's real-DB world (the same graph, bench.realdb_graph, and
+   its mapper, so the bench builds neither), every kernel's launch
+   count set to 0 just before it: its line is printed as `bench {...}`
+   (the card's name and power limit in its `card` field); every name of
+   bench.FIELD_ORDER and of the additions must be in it, its three
+   agreement flags true, every metric finite and above 0, and each of
+   the eight kernels launched. Calls are kept by the bench phase that
+   makes them (BenchCalls). The sw phase's last scores must equal
+   sw_scores_plain; the SW kernel is timed at its shape (B=4,096,
+   R=128, W=256) beside its bound, by events and on the device alone;
+   gather_score_hash_kernel at realdb_mapping's first call (a
+   4,096-read chunk of the 5,179-path world); hc_node_scores_kernel at
+   device_step's batch, rebuilt as the phase builds it (M = 196,608, S
+   = 8; the GEMV over the 11,825 x 5,179 f64 support matrix and the
+   whole score_batch beside it); euka_score_kernel at every scorer call
+   of euka_realdb (100-bp reads; rtol 1e-12, NaN and inf where the
+   plain version has them), its largest timed; both overlap kernels at
+   every overlap call of the keelime phase (exactly equal to
+   plain_indexed), the calls with the most short and the most long
+   pairs checked and timed as phase 7 does;
+   abundance_mcmc_segment_kernel at euka_mcmc's segment (T = 6) and
+   tree_mcmc_segment_kernel over SB_TIMED_STEPS steps of soibean_mcmc's
+   first post-burn-in segment (4 chains of k = 2, R = 200, 255 nodes),
+   each held against its plain version on the card and timed beside its
+   bound.
 
-The kernels line lists the eight kernels: gather_score_hash_kernel's
+The kernels line lists the eight kernels, each with phase 9's launches
+added to its count and its row at the bench's shape (`bench_shape`):
+gather_score_hash_kernel's
 launches are those of the HaploCart, soibean, keelime and euka runs
 and of the two ranks of phase 8 together, sw_scores_kernel's those of
 the object path, tree_mcmc_segment_kernel's those of the soibean runs
@@ -226,33 +255,26 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+try:
+    # the card's peak rates and the bound of an SW call
+    # (vgan_tpu_torch/utils/roofline.py: 5 of a DP cell's 9 integer
+    # operations on the 64-lane ALU pipe), shared with the bench
+    from vgan_tpu_torch.utils.roofline import (
+        ALU_OPS_PER_CELL, CLOCK_HZ, HBM_BYTES_PER_S, SM_LANES, SMS)
+    from vgan_tpu_torch.utils.roofline import sw_bound_ms as bound_ms
+except ImportError:
+    sys.exit("chip_smoke.py: run it from a checkout of the repository "
+             "(vgan_tpu_torch/ not found beside it)")
 KERNEL_SOURCE = "vgan_tpu_torch/csrc/sw.cu"
 REPLACES = "vgan_tpu/mapper/sw_pallas.py:191"  # the pallas_call of sw_scores
-# Bound of an SW call on an H100 SXM (NVIDIA's data sheet and Hopper
-# white paper): 132 SMs at up to 1.98 GHz and 3.35 TB/s of HBM. An SM
-# issues at most 128 lane operations a clock (four sub-partitions, one
-# warp instruction a clock each); of these at most 64 go to the integer
-# ALU pipe, which alone runs compares and min/max (DPX included), while
-# the FMA pipe takes the rest of the integer adds (sm_90's VIADD) and
-# multiply-adds. A DP cell of the int32 recurrence is 9 operations:
-# 5 on the ALU pipe (the match compare; E, F and the running best as
-# one VIADDMNMX each; H as one VIMNMX3 with relu) and 4 adds (the
-# diagonal score as an add and a predicated add, E - 1, F - 1), as the
-# sm_90a SASS issues them (check_sass). A hashed window column is two
-# multiply-adds.
-SMS, CLOCK_HZ = 132, 1.98e9
-ALU_LANES, SM_LANES = 64, 128  # a clock, an SM: ALU pipe, all pipes
-HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_CELL, FMA_OPS_PER_CELL = 5, 4
-HASH_OPS_PER_COLUMN = 2
 # the long-read shape: 1,000-bp reads in a 1,024-row bucket (four
 # 256-row bands) and 1,152-column windows
 LONG_B, LONG_R, LONG_W, LONG_READ_LEN = 2048, 1024, 1152, 1000
 # the mapper's object path (the oracle of the production path), driven
 # on this many of HaploCart's reads
 OBJECT_PATH_READS = 1000
-N_HAPS, N_VARIANTS, BACKBONE_BP, N_READS, READ_LEN, HAP = (
-    5179, 600, 16569, 8000, 100, 5)
+N_HAPS, N_READS, READ_LEN, HAP = 5179, 8000, 100, 5
 # the mapper's SW shape: a 4,096-read chunk x 8 candidates, 128-row
 # read bucket, 192-column window bucket
 MAP_B, MAP_R, MAP_W = 32768, 128, 192
@@ -279,7 +301,8 @@ SB_LEAVES, SB_BP, SB_SITES_PER_UNIT, SB_NODE_LEN = 128, 16569, 150, 2
 SB_PREFIX, SB_READ_LEN = "family", 64
 SB_MIX = (2400, 1200, 400)  # reads of the three planted leaves
 SB_SHARES = (0.6, 0.3, 0.1)
-SB_ITER, SB_BURNIN, SB_CHAINS = 100000, 15000, 4
+# cut from 100,000 / 15,000 when phase 9 came in (the smoke's budget)
+SB_ITER, SB_BURNIN, SB_CHAINS = 50000, 7500, 4
 # the kernel against its plain versions: steps of the burn-in walk, then
 # steps of the post-burn-in walk from the carry; the plain version's
 # time a step and the kernel's over SB_TIMED_STEPS
@@ -364,21 +387,6 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def bound_ms(cells: int, hashed_columns: int, nbytes: int):
-    """(least milliseconds on the card, "operations" or "bytes") for
-    `cells` DP cells and `hashed_columns` hashed window columns moving
-    `nbytes`: the ALU pipe's share of the operations over its 64 lanes
-    an SM, or all of them over the 128 lanes an SM issues, whichever
-    takes longer, against the bytes over the HBM rate."""
-    alu = cells * ALU_OPS_PER_CELL
-    ops = (cells * (ALU_OPS_PER_CELL + FMA_OPS_PER_CELL)
-           + hashed_columns * HASH_OPS_PER_COLUMN)
-    t_ops = max(alu / ALU_LANES, ops / SM_LANES) / (SMS * CLOCK_HZ)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def f64_bound_ms(ops: int, nbytes: int):
@@ -805,26 +813,20 @@ def phase_kernels(dev, clock):
 
 # ----------------------------------------------------------------- phase 4
 def build_world(out_dir):
-    import numpy as np
-
+    """The bench's real-DB world (bench.realdb_graph: N_HAPS haplotypes,
+    600 variants, seed 3, over the seeded 16,569-bp backbone) as a DB
+    directory, and N_READS reads of haplotype HAP as FASTQ."""
+    from vgan_tpu_torch import bench
     from vgan_tpu_torch.graph import synth
 
     t0 = time.perf_counter()
-    codes = np.random.default_rng(0).integers(0, 4, size=BACKBONE_BP)
-    backbone = np.frombuffer(b"ACGT", np.uint8)[codes].tobytes().decode()
-    graph, _ = synth.build_haplotype_graph(
-        backbone, n_haplotypes=N_HAPS, n_variants=N_VARIANTS, seed=3)
+    graph = bench.realdb_graph(N_HAPS)
     db_dir = os.path.join(out_dir, "db")
     os.makedirs(db_dir)
     graph.save(os.path.join(db_dir, "graph.npz"))
     reads = synth.sample_reads(graph, HAP, N_READS, read_len=READ_LEN,
                                seed=0)
-    fq = os.path.join(out_dir, "reads.fq")
-    with open(fq, "w") as f:
-        for r in reads:
-            # Read.qual is raw phred; FASTQ wants phred+33 ascii
-            qual = bytes(q + 33 for q in r.qual).decode()
-            f.write(f"@{r.name}\n{r.seq}\n+\n{qual}\n")
+    fq = bench.write_fastq(os.path.join(out_dir, "reads.fq"), reads)
     log(f"world: {graph.n_paths} paths, {graph.n_nodes} nodes, "
         f"{N_READS} reads ({time.perf_counter() - t0:.1f} s)")
     return db_dir, fq
@@ -2618,19 +2620,12 @@ def phase_keelime(dev, out_dir, clock):
 
 
 # ----------------------------------------------------------------- phase 8
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def two_rank_haplocart(dev, out_dir, world, smi):
     """`haplocart --nproc 2` as two processes on the one card (see the
     module docstring); returns the ranks' lines and the run's wall."""
     import numpy as np
 
+    from vgan_tpu_torch.bench import free_port
     from vgan_tpu_torch.io import fastx
     from vgan_tpu_torch.parallel.multihost import shard_bounds
     from vgan_tpu_torch.pipelines import haplocart as hc
@@ -2810,19 +2805,367 @@ def phase_multi(dev, out_dir, world, ksweep_call, smi):
                             split_s=halves_s, one_s=whole_s))
 
 
+# ----------------------------------------------------------------- phase 9
+# the kernels the bench's phases launch (see the module docstring)
+BENCH_KERNELS = ("sw_scores", "gather_score_hash", "hc_node_scores",
+                 "euka_score", "abundance_mcmc_segment", "tree_mcmc_segment",
+                 "overlap_warp", "overlap_best")
+BENCH_FLAGS = ("argmax_agrees", "hc_realdb_argmax_agrees",
+               "device_argmax_agrees")
+# the names the bench's line adds to bench.FIELD_ORDER's
+BENCH_ADDED = ("sw_bound_share", "card", "host_cpus", "worlds")
+
+
+def _positive_numbers(x) -> bool:
+    """Every number in x (a number, or a list or dict of them) finite
+    and above 0."""
+    if isinstance(x, dict):
+        return all(_positive_numbers(v) for v in x.values())
+    if isinstance(x, list):
+        return len(x) > 0 and all(_positive_numbers(v) for v in x)
+    import math
+
+    return (isinstance(x, (int, float)) and not isinstance(x, bool)
+            and math.isfinite(x) and x > 0)
+
+
+def check_bench_result(res):
+    """Every name of bench.FIELD_ORDER and of BENCH_ADDED in the line,
+    the three agreement flags true and every metric finite and above 0
+    (the text fields, the card and the worlds aside)."""
+    from vgan_tpu_torch import bench
+
+    missing = [k for k in bench.FIELD_ORDER + list(BENCH_ADDED)
+               if k not in res]
+    if missing:
+        raise AssertionError(f"bench: no {', '.join(missing)} in its line")
+    bad = [k for k in BENCH_FLAGS if res[k] is not True]
+    bad += [k for k, v in res.items()
+            if k not in BENCH_FLAGS + ("metric", "unit", "workload", "card",
+                                       "worlds")
+            and not _positive_numbers(v)]
+    if bad:
+        raise AssertionError("bench: " + ", ".join(
+            f"{k}={res[k]!r}" for k in bad))
+
+
+class BenchCalls:
+    """Keeps kernel wrappers' calls made inside the bench's phases, as
+    the other phases keep theirs: while in use, each wrapper of `specs`
+    = {key: (module, wrapper name, bench phase, pick)} is wrapped so
+    that a call made while `b` runs that phase, for which pick(args,
+    kept) (kept: the calls of that key so far) returns the arguments to
+    keep, is appended to calls[key] as (those arguments, kwargs, the
+    wrapper's output). pick runs before the wrapper, so it can clone
+    what the wrapper updates in place."""
+
+    def __init__(self, b, specs):
+        self.b, self.specs = b, specs
+        self.calls = {k: [] for k in specs}
+        self.saved = []
+
+    def __enter__(self):
+        for key, (mod, name, phase, pick) in self.specs.items():
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def keeping(*args, _fn=fn, _key=key, _phase=phase, _pick=pick,
+                        **kw):
+                kept = (_pick(args, self.calls[_key])
+                        if self.b.phase == _phase else None)
+                out = _fn(*args, **kw)
+                if kept is not None:
+                    self.calls[_key].append((kept, kw, out))
+                return out
+
+            setattr(mod, name, keeping)
+        return self.calls
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def bench_hc_step(call, smi):
+    """hc_node_scores_kernel at the device_step phase's call (`call`:
+    its HcBatch of M rows, S = 8, its f64 tables of the real DB's shape,
+    bep and consensus): kernel vs plain (final scores to rtol 1e-12),
+    the kernel by events and on the device alone, the plain version, the
+    GEMV and the whole score_batch call, beside the bound of the node scores (its f64
+    instructions against every batch column, the tables it reads and c
+    written once) and the GEMV's bytes."""
+    import torch
+
+    from vgan_tpu_torch.pipelines import haplocart_device as hd
+
+    batch, t, bep, consensus = call
+    M, S = batch.g.shape
+    c, sb = hd.node_scores(batch, t, bep, consensus)
+    pc, psb = hd.node_scores_plain(batch, t, bep, consensus)
+    err = _close("bench device_step: score_batch kernel vs plain",
+                 sb + c @ t.support, psb + pc @ t.support, 1e-12)
+    ms = cuda_ms(lambda: hd.node_scores(batch, t, bep, consensus), reps=20)
+    dev_ms = queued_ms(lambda: hd.node_scores(batch, t, bep, consensus), 20)
+    plain_ms = cuda_ms(lambda: hd.node_scores_plain(batch, t, bep,
+                                                    consensus), reps=3)
+    gemv_ms = cuda_ms(lambda: c @ t.support, reps=20)
+    call_ms = cuda_ms(lambda: hd.score_batch(batch, t, bep, consensus),
+                      reps=20)
+    counted = batch.valid & (batch.g < 4) & (batch.r < 4)
+    n_pos = int(counted.sum())
+    ops = HC_F64_OPS_PER_POSITION * n_pos + HC_F64_OPS_PER_ROW * M
+    tables = [t.match_tab, t.mapp_tab, t.imtab, t.bg]
+    if bool(counted[~batch.use_bep].any()):
+        tables.append(t.qtab)
+    moved = (nbytes(batch.g, batch.r, batch.q, batch.pang, batch.mq,
+                    batch.b, batch.node, batch.valid, batch.use_bep)
+             + nbytes(*tables) + 8 * (t.support.shape[0] + 1))
+    bms, by = f64_bound_ms(ops, moved)
+    gemv_bound = nbytes(t.support, c) / HBM_BYTES_PER_S * 1e3
+    dev_txt = ("not measured" if dev_ms is None else
+               f"{dev_ms:.4f} ms ({100 * bms / dev_ms:.1f} %)")
+    log(f"bench hc_node_scores_kernel, device_step (M={M}, S={S}, "
+        f"{t.support.shape[0]} x {t.support.shape[1]} f64 support): "
+        f"{ms:.4f} ms a call by events ({100 * bms / ms:.1f} % of the "
+        f"{bms:.5f} ms bound, {by}), on the device alone {dev_txt}; plain "
+        f"{plain_ms:.3f} ms; the GEMV {gemv_ms:.4f} ms (bytes bound "
+        f"{gemv_bound:.4f} ms); score_batch {call_ms:.4f} ms; equal to plain "
+        f"(max abs err {err:.3g}); on {smi}")
+    return dict(M=M, S=S, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, gemv_ms=gemv_ms,
+                gemv_bound_ms=gemv_bound, call_ms=call_ms, max_abs_err=err)
+
+
+def bench_chain(call, smi):
+    """abundance_mcmc_segment_kernel at the euka_mcmc phase's segment (T =
+    6): kernel vs plain (rtol 1e-12, the same accepted steps), timed by
+    events beside its bound; the plain version once."""
+    from vgan_tpu_torch.infer import abundance_mcmc as am
+
+    args, kw, _out = call
+    S, T = args[2].shape
+    (ks, kl), kp = am.run_segment(*args, **kw)
+    (ps, pl), pp = am.run_segment_plain(*args)
+    err = max(_close("bench chain proposals", kp, pp, 1e-12),
+              _close("bench chain state", ks, ps, 1e-12),
+              _close("bench chain likelihood", kl, pl, 1e-12))
+    steps, _margin = same_accepts("bench chain", args, kp, pp)
+    ms = cuda_ms(lambda: am.run_segment(*args, **kw), reps=5)
+    plain_ms = cuda_ms(lambda: am.run_segment_plain(*args), reps=1,
+                       warmup=0)
+    bms, by = f64_bound_ms(S * (AM_F64_OPS_PER_TAXON * T
+                                + AM_F64_OPS_PER_STEP), 2 * S * T * 8)
+    log(f"bench abundance chain kernel, euka_mcmc (T={T}, S={S}): "
+        f"{ms:.4f} ms = {1e3 * ms / S:.4f} us a step ({100 * bms / ms:.3f} "
+        f"% of the {bms:.5f} ms bound, {by}); acceptance "
+        f"{len(steps) / S:.4f}; plain {plain_ms:.1f} ms; equal to plain "
+        f"(max abs err {err:.3g}); on {smi}")
+    return dict(T=T, S=S, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, acceptance=len(steps) / S, max_abs_err=err)
+
+
+def bench_tree(call, smi):
+    """tree_mcmc_segment_kernel over SB_TIMED_STEPS steps of the
+    soibean_mcmc phase's first post-burn-in segment (4 chains of k = 2
+    sources, R = 200 reads, 255 nodes) from that segment's carry: kernel
+    vs plain (node ids exact, floats to rtol 1e-10), timed by events
+    beside tree_bound_ms; the plain version once."""
+    import torch
+
+    from vgan_tpu_torch.infer import tree_mcmc as tm
+
+    args, _kw, _out = call
+    carry, rest = args[:4], args[4:]
+    mask, iters, sd, noise = rest[:4]
+    data = rest[4:]  # path_map_t, counts25_t, tree, con, freq
+    n = min(SB_TIMED_STEPS, int(iters.shape[0]))
+    seg = (mask, iters[:n].contiguous(), sd[:n].contiguous(),
+           tm.Noise(*(x[:, :n].contiguous() for x in noise)))
+    _kc, krec = tm.run_segment(*(x.clone() for x in carry), *seg, *data)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    _pc, prec = tm.run_segment_plain(*(x.clone() for x in carry), *seg,
+                                     *data)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    if not torch.equal(krec[0], prec[0]):
+        raise AssertionError("bench tree kernel vs plain: node ids differ")
+    err = max(_close(f"bench tree kernel vs plain ({name})", x, y, 1e-10)
+              for name, x, y in zip(("pos", "theta", "loglike"), krec[1:],
+                                    prec[1:]))
+    ms = cuda_ms(lambda: tm.run_segment(*(x.clone() for x in carry), *seg,
+                                        *data), reps=5)
+    B, K = mask.shape
+    P, R = data[0].shape
+    hops = noise.walk_u.shape[3]
+    bms, by, _stream = tree_bound_ms(
+        mask.cpu().numpy(), n, R, dict(P=P, size=data[1].element_size()),
+        hops)
+    log(f"bench tree kernel, soibean_mcmc (B={B}, K={K}, R={R}, P={P}, "
+        f"{hops} hops, from iteration {int(iters[0])}): {ms:.3f} ms for {n} "
+        f"steps = {1e3 * ms / n:.2f} us a step ({100 * bms / ms:.2f} % of "
+        f"the {bms:.4f} ms bound, {by}); plain {plain_ms:.1f} ms; equal to "
+        f"plain (max abs err {err:.3g}); on {smi}")
+    return dict(B=B, K=K, R=R, P=P, steps=n, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, max_abs_err=err)
+
+
+def bench_euka(calls, smi):
+    """euka_score_kernel at the euka_realdb phase's calls (its world's
+    100-bp reads): each call's outputs against score_batch_plain on the
+    card (rtol 1e-12, NaN and inf where the plain version has them), and
+    the largest call timed (time_euka_call)."""
+    from vgan_tpu_torch.pipelines import euka as ek
+
+    err = 0.0
+    for i, (args, _kw, got) in enumerate(calls):
+        want = ek.score_batch_plain(*args)
+        err = max(err, _close(f"bench euka_realdb call {i} il", got[0],
+                              want[0], 1e-12),
+                  _close(f"bench euka_realdb call {i} nl", got[1], want[1],
+                         1e-12))
+    args, _kw, got = max(calls, key=lambda c: c[0][0].numel())
+    row = time_euka_call("bench euka_realdb, its largest scorer call", args,
+                         got, smi)
+    log(f"bench euka_realdb: {len(calls)} scorer calls equal to plain (max "
+        f"abs err {err:.3g})")
+    return dict(row, calls=len(calls), max_abs_err=max(err,
+                                                       row["max_abs_err"]))
+
+
+def bench_overlaps(dev, calls, smi):
+    """The two overlap kernels at the keelime phase's calls (the contigs
+    of the 32-haplotype toy world): each overlap_best_indexed call's
+    lengths and scores equal to plain_indexed's on the card, then the
+    call with the most short pairs and the one with the most long pairs
+    (the warp and the block kernel's largest batches) checked and timed
+    as phase 7 checks its calls (check_overlap_calls). Returns (warp
+    row, block row, calls)."""
+    import torch
+
+    from vgan_tpu_torch.pipelines import keelime_device as kd
+
+    n_short = []
+    for i, (args, _kw, got) in enumerate(calls):
+        buf, off, ai, bi, min_olen, min_score = args[:6]
+        want = kd.plain_indexed(kd.seq_codes(buf), off, ai, bi, min_olen,
+                                min_score)
+        if not (torch.equal(got[0], want[0])
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"bench keelime overlap call {i}: kernels "
+                                 "vs plain_indexed")
+        la = off[ai.long() + 1] - off[ai.long()]
+        n_short.append(int(kd.split_by_length(la)[1]))
+    n_long = [c[0][2].numel() - k for c, k in zip(calls, n_short)]
+    if max(n_long) == 0:
+        raise AssertionError("bench keelime: no call has a long pair")
+    picked = sorted({max(range(len(calls)), key=n_short.__getitem__),
+                     max(range(len(calls)), key=n_long.__getitem__)})
+    rows = check_overlap_calls(dev, [c[0] + (c[2],) for c in
+                                     (calls[i] for i in picked)], smi)
+    warp = max((r["warp"] for r in rows if "warp" in r),
+               key=lambda c: c["pairs"])
+    block = max((r["block"] for r in rows if "block" in r),
+                key=lambda c: c["pairs"])
+    log(f"bench keelime: {len(calls)} overlap calls equal to plain; calls "
+        f"{picked} checked and timed; on {smi}")
+    return dict(warp, calls=len(calls)), dict(block, calls=len(calls))
+
+
+def phase_bench(dev, clock, realdb):
+    """Phase 9: the port's bench at full size, in this process, on phase
+    4's real-DB world (`realdb`: its graph and mapper; see the module
+    docstring). Returns its result line, the launches of each kernel
+    during it, and each kernel's row at the bench's shape."""
+    import torch
+
+    from vgan_tpu_torch import bench
+    from vgan_tpu_torch.infer import abundance_mcmc as am
+    from vgan_tpu_torch.infer import tree_mcmc as tm
+    from vgan_tpu_torch.mapper import sw
+    from vgan_tpu_torch.pipelines import euka as ek
+    from vgan_tpu_torch.pipelines import haplocart_device as hd
+    from vgan_tpu_torch.pipelines import keelime_device as kd
+
+    sizes = bench.Sizes.of(False)
+    b = bench.Bench(dev, sizes, realdb=realdb)
+    burn = sizes.soibean_burn
+
+    def first_post_burn_in(args, kept):
+        # soibean_mcmc's first post-burn-in segment (of its warm run),
+        # its carry cloned before the kernel updates it in place
+        if kept or int(args[5][0]) != burn + 1:
+            return None
+        return tuple(x.clone() for x in args[:4]) + args[4:]
+
+    specs = {
+        # realdb_mapping's first call (the warm-up's 4,096-read chunk)
+        "gsh": (sw, "gather_score_hash", "realdb_mapping",
+                lambda args, kept: None if kept else args),
+        "euka": (ek, "score_batch", "euka_realdb", lambda args, kept: args),
+        "overlap": (kd, "overlap_best_indexed", "keelime",
+                    lambda args, kept: args if args[2].numel() else None),
+        "chain": (am, "run_segment", "euka_mcmc", lambda args, kept: args),
+        "tree": (tm, "run_segment", "soibean_mcmc", first_post_burn_in),
+    }
+    mods = (sw, hd, ek, am, tm, kd)
+    for m in mods:
+        m.reset_launches()
+    t0 = time.perf_counter()
+    with BenchCalls(b, specs) as calls:
+        fields = bench.run(b, list(bench.PHASES))
+    wall = time.perf_counter() - t0
+    launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    res = bench.result(fields, b)
+    print("bench " + json.dumps(res), flush=True)
+    log(f"bench: {wall:.1f} s for all {len(bench.PHASES)} phases; kernel "
+        f"launches {json.dumps(launches)}; kept calls "
+        f"{json.dumps({k: len(v) for k, v in calls.items()})}; on "
+        f"{clock.smi}")
+    check_bench_result(res)
+    missing = [k for k in BENCH_KERNELS if launches[k] < 1]
+    missing += [k for k, v in calls.items() if not v]
+    if missing:
+        raise AssertionError(f"bench: no launch of {missing}")
+
+    # the sw phase's last scores against the plain version, and the SW
+    # kernel timed at its shape
+    args, out = b.sw_call
+    if not torch.equal(out, sw.sw_scores_plain(*args)):
+        raise AssertionError("bench sw phase: scores != sw_scores_plain")
+    B, R, W = sizes.sw_shape
+    t_sw = clock.timed(f"bench sw phase's shape (B={B}, R={R}, W={W}, "
+                       "full-length)", lambda: sw.sw_scores(*args),
+                       lambda: sw.sw_scores_plain(*args), sw_work(*args),
+                       reps=sizes.sw_reps)
+    gsh = check_sw_calls("bench realdb_mapping",
+                         [(a, o) for a, _kw, o in calls["gsh"]], clock)
+    # device_step's inputs, built as the phase builds them, and
+    # score_batch's default bep and consensus, as the phase calls it
+    _support, t, batch = bench.device_step_inputs(dev, sizes.n_reads_dev)
+    hc_step = bench_hc_step((batch, t, 1e-4, False), clock.smi)
+    del t, batch
+    warp, block = bench_overlaps(dev, calls["overlap"], clock.smi)
+    return dict(result=res, wall_s=wall, launches=launches, sw=t_sw,
+                gsh=dict(gsh["calls"][0], max_abs_err=gsh["max_abs_err"]),
+                hc_step=hc_step, euka=bench_euka(calls["euka"], clock.smi),
+                warp=warp, block=block,
+                chain=bench_chain(calls["chain"][-1], clock.smi),
+                tree=bench_tree(calls["tree"][0], clock.smi))
+
+
 # ----------------------------------------------------------------- main
 def main() -> int:
-    if not os.path.isdir(os.path.join(HERE, "vgan_tpu_torch")):
-        print("chip_smoke.py: run it from a checkout of the repository "
-              "(vgan_tpu_torch/ not found beside it)", file=sys.stderr)
-        return 2
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this "
               "smoke test needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -2843,9 +3186,13 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="vgan_smoke_keelime_") as tmp:
             kl = phase_keelime(dev, tmp, clock)
         t8 = time.perf_counter()
-        mp = phase_multi(dev, hc_tmp, e2e.pop("world"), sb.pop("ksweep_call"),
-                         smi)
+        world = e2e.pop("world")
+        mp = phase_multi(dev, hc_tmp, world, sb.pop("ksweep_call"), smi)
         log(f"phase 8: {time.perf_counter() - t8:.1f} s on {smi}")
+    t9 = time.perf_counter()
+    bn = phase_bench(dev, clock, (world["db"].graph, world["mapper"]))
+    del world
+    log(f"phase 9: {time.perf_counter() - t9:.1f} s on {smi}")
     with tempfile.TemporaryDirectory(prefix="vgan_smoke_euka_") as tmp:
         eu = phase_euka(dev, tmp, clock)
     log(f"euka: euka_realdb_e2e_reads_per_s "
@@ -2877,7 +3224,10 @@ def main() -> int:
         keelime_overlap_calls=kl["overlap"],
         keelime_cluster_sweep=kl["cluster_sweep"],
         keelime_map_card_s=kl["map_card_s"], keelime_map_cpu_s=kl["map_cpu_s"],
-        keelime_duprm_kept=kl["duprm_kept"], multi=mp)))
+        keelime_duprm_kept=kl["duprm_kept"], multi=mp,
+        bench={k: bn[k] for k in ("wall_s", "launches", "sw", "gsh",
+                                  "hc_step", "euka", "warp", "block",
+                                  "chain", "tree")})))
     # launches: sw_scores from the mapper's object path, gather_score_hash
     # from the HaploCart, soibean, keelime and euka CLI runs and phase 8's
     # two ranks, tree_mcmc_segment from the soibean CLI runs and phase 8's
@@ -2908,9 +3258,11 @@ def main() -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": e2e["object_path"]["launches"],
+        "launches": (e2e["object_path"]["launches"]
+                     + bn["launches"]["sw_scores"]),
         "max_abs_err": max(k["max_abs_err"]["sw_scores"],
                            e2e["object_path"]["max_abs_err"]),
+        "bench_shape": bn["sw"],
         "ms": t_sw["ms"],
         "plain_ms": t_sw["plain_ms"],
         "bound_ms": t_sw["bound_ms"],
@@ -2925,11 +3277,14 @@ def main() -> int:
                      + sb["sw_launches"] + kl["sw_launches"]
                      + eu["launches"]["gather_score_hash"]
                      + sum(r["launches"]["gather_score_hash"]
-                           for r in mp["ranks"]["ranks"])),
+                           for r in mp["ranks"]["ranks"])
+                     + bn["launches"]["gather_score_hash"]),
         "max_abs_err": max(k["max_abs_err"]["gather_score_hash"],
                            e2e["sw"]["max_abs_err"],
                            sb["sw"]["max_abs_err"],
-                           eu["compare"]["sw"]["max_abs_err"]),
+                           eu["compare"]["sw"]["max_abs_err"],
+                           bn["gsh"]["max_abs_err"]),
+        "bench_shape": bn["gsh"],
         "ms": t_gsh["ms"],
         "plain_ms": t_gsh["plain_ms"],
         "bound_ms": t_gsh["bound_ms"],
@@ -2940,8 +3295,11 @@ def main() -> int:
         "route": "cuda",
         "source": TREE_SOURCE,
         "replaces": TREE_REPLACES,
-        "launches": sb["launches"] + mp["chains"]["launches"],
-        "max_abs_err": sb["kernel"]["max_abs_err"],
+        "launches": (sb["launches"] + mp["chains"]["launches"]
+                     + bn["launches"]["tree_mcmc_segment"]),
+        "max_abs_err": max(sb["kernel"]["max_abs_err"],
+                           bn["tree"]["max_abs_err"]),
+        "bench_shape": bn["tree"],
         "ms": t_tree["ms"],
         "plain_ms": t_tree["plain_ms"],
         "bound_ms": t_tree["bound_ms"],
@@ -2952,9 +3310,11 @@ def main() -> int:
         "route": "cuda",
         "source": KL_SOURCE,
         "replaces": KL_REPLACES,
-        "launches": kl["launches"]["overlap_warp"],
-        "max_abs_err": max(r["warp"]["max_abs_err"] for r in kl["overlap"]
-                           if "warp" in r),
+        "launches": (kl["launches"]["overlap_warp"]
+                     + bn["launches"]["overlap_warp"]),
+        "max_abs_err": max([r["warp"]["max_abs_err"] for r in kl["overlap"]
+                            if "warp" in r] + [bn["warp"]["max_abs_err"]]),
+        "bench_shape": bn["warp"],
         "ms": t_warp["ms"],
         "plain_ms": t_warp["plain_ms"],
         "bound_ms": t_warp["bound_ms"],
@@ -2965,9 +3325,12 @@ def main() -> int:
         "route": "cuda",
         "source": KL_SOURCE,
         "replaces": KL_REPLACES,
-        "launches": kl["launches"]["overlap_best"],
-        "max_abs_err": max(r["block"]["max_abs_err"] for r in kl["overlap"]
-                           if "block" in r),
+        "launches": (kl["launches"]["overlap_best"]
+                     + bn["launches"]["overlap_best"]),
+        "max_abs_err": max([r["block"]["max_abs_err"]
+                            for r in kl["overlap"] if "block" in r]
+                           + [bn["block"]["max_abs_err"]]),
+        "bench_shape": bn["block"],
         "ms": t_block["ms"],
         "plain_ms": t_block["plain_ms"],
         "bound_ms": t_block["bound_ms"],
@@ -2984,13 +3347,15 @@ def main() -> int:
         "route": "cuda",
         "source": AM_SOURCE,
         "replaces": AM_REPLACES,
-        "launches": eu["launches"]["abundance_mcmc_segment"],
-        "max_abs_err": t_am["max_abs_err"],
+        "launches": (eu["launches"]["abundance_mcmc_segment"]
+                     + bn["launches"]["abundance_mcmc_segment"]),
+        "max_abs_err": max(t_am["max_abs_err"], bn["chain"]["max_abs_err"]),
         "ms": t_am["ms"],
         "plain_ms": t_am["plain_ms"],
         "bound_ms": t_am["bound_ms"],
         "bound_by": t_am["bound_by"],
         "library_ms": t_am["graph_ms"],
+        "bench_shape": bn["chain"],
         "steps": t_am["S"],
         "taxa": t_am["T"],
         "floor_ms": t_am["floor_ms"],
@@ -3010,13 +3375,16 @@ def main() -> int:
                      + sum(r["launches"]["hc_node_scores"]
                            for r in mp["ranks"]["ranks"])
                      + mp["hc_split"]["launches"]
-                     + sum(g["launches"] for g in mp["hc_tp"])),
-        "max_abs_err": e2e["hc_step"]["max_abs_err"],
+                     + sum(g["launches"] for g in mp["hc_tp"])
+                     + bn["launches"]["hc_node_scores"]),
+        "max_abs_err": max(e2e["hc_step"]["max_abs_err"],
+                           bn["hc_step"]["max_abs_err"]),
         "ms": t_hc["ms"],
         "plain_ms": t_hc["plain_ms"],
         "bound_ms": t_hc["bound_ms"],
         "bound_by": t_hc["bound_by"],
         "library_ms": None,
+        "bench_shape": bn["hc_step"],
         "M": t_hc["M"],
         "S": t_hc["S"],
         "call_ms": t_hc["call_ms"],
@@ -3027,8 +3395,11 @@ def main() -> int:
         "route": "cuda",
         "source": EUKA_SOURCE,
         "replaces": EUKA_REPLACES,
-        "launches": eu["launches"]["euka_score"],
-        "max_abs_err": eu["scorer"]["max_abs_err"],
+        "launches": (eu["launches"]["euka_score"]
+                     + bn["launches"]["euka_score"]),
+        "max_abs_err": max(eu["scorer"]["max_abs_err"],
+                           bn["euka"]["max_abs_err"]),
+        "bench_shape": bn["euka"],
         "ms": t_eu["ms"],
         "plain_ms": t_eu["plain_ms"],
         "bound_ms": t_eu["bound_ms"],

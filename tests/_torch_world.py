@@ -3,11 +3,15 @@ random ACGT backbone turned into a HaploCart-shaped haplotype graph
 (graph/synth.build_haplotype_graph), its graph.npz DB directory, and
 reads sampled from one haplotype written as FASTQ.
 
-Pure numpy plus the given synth module, so the no-jax test can build
-the same world through the port's copy of graph/synth.py."""
+Numpy, the given synth module and the port's bench module (which
+imports no JAX), so the no-jax test can build the same world through
+the port's copy of graph/synth.py."""
 import os
 
 import numpy as np
+
+# the FASTQ writer and the random tree are the port's bench's (no JAX)
+from vgan_tpu_torch.bench import random_tree, write_fastq  # noqa: F401
 
 N_BP, N_HAPS, N_VARIANTS, N_READS, HAP, SEED = 2000, 16, 40, 300, 5, 3
 
@@ -15,14 +19,6 @@ N_BP, N_HAPS, N_VARIANTS, N_READS, HAP, SEED = 2000, 16, 40, 300, 5, 3
 def backbone(n_bp: int, seed: int) -> str:
     codes = np.random.default_rng(seed).integers(0, 4, size=n_bp)
     return np.frombuffer(b"ACGT", dtype=np.uint8)[codes].tobytes().decode()
-
-
-def write_fastq(path, reads) -> None:
-    with open(path, "w") as f:
-        for r in reads:
-            # Read.qual is raw phred; FASTQ wants phred+33 ascii
-            qual = bytes(q + 33 for q in r.qual).decode()
-            f.write(f"@{r.name}\n{r.seq}\n+\n{qual}\n")
 
 
 def build(synth, out_dir, n_bp=N_BP, n_haps=N_HAPS, n_variants=N_VARIANTS,
@@ -223,34 +219,6 @@ def write_gfa(graph, path):
 
 
 # --------------------------------------------------------- soibean worlds
-def random_tree(n_leaves, seed, lo=0.01, hi=0.3):
-    """A random rooted binary tree: leaves L0..L{n-1} joined pairwise at
-    random under internal nodes N0.. (the root is the last), branch
-    lengths uniform in [lo, hi]. Returns (newick, children, length,
-    root): children maps a name to its child names, length a non-root
-    name to its branch length."""
-    rng = np.random.default_rng(seed)
-    active = [f"L{i}" for i in range(n_leaves)]
-    children, length = {}, {}
-    for t in range(n_leaves - 1):
-        i, j = sorted(rng.choice(len(active), size=2, replace=False))
-        b = active.pop(j)
-        a = active.pop(i)
-        name = f"N{t}"
-        children[name] = [a, b]
-        for c in (a, b):
-            length[c] = float(rng.uniform(lo, hi))
-        active.append(name)
-    root = active[0]
-
-    def nwk(n):
-        kids = children.get(n)
-        body = f"({','.join(nwk(c) for c in kids)})" if kids else ""
-        return body + n + (f":{length[n]:.6f}" if n in length else "")
-
-    return nwk(root) + ";", children, length, root
-
-
 def build_tree_graph(synth, tree_world, n_bp, sites_per_unit, node_len=8,
                      seed=0):
     """One path per tree node over a seeded random backbone, with

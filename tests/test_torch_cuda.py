@@ -6,7 +6,8 @@ euka scorer, the abundance MCMC, soibean's k-sweep, keelime and `map`
 against the same code on the CPU, on the card; and the multi-process and
 split paths (two HaploCart ranks on the one card, the split scorer and
 chains over [card, card], the HaploCart scorer over dp x tp grids of the
-card) against one process on one card. Marked
+card) against one process on one card; and the bench's sw and
+device_step phases on the card (vgan_tpu_torch/bench.py). Marked
 `cuda`: they skip where torch.cuda.is_available() is false. This file imports neither jax nor
 vgan_tpu, so it also runs where jax is absent:
 
@@ -1774,3 +1775,44 @@ def test_split_scorers_on_repeated_card_equal_one_card(dev, tmp_path):
         for f in ("pos", "theta", "loglike"):
             np.testing.assert_allclose(getattr(a, f), getattr(b, f),
                                        rtol=1e-10)
+
+
+@pytest.mark.parametrize("phase,flags", [("sw", ()),
+                                         ("device_step",
+                                          ("device_argmax_agrees",))])
+def test_bench_phase_on_the_card(dev, phase, flags, monkeypatch, capsys):
+    """`bench --phase sw|device_step --device cuda` at bench.py's smoke
+    sizes: exit 0, the line names the card, its agreement flag true and
+    every metric finite and above 0."""
+    import json
+
+    from vgan_tpu_torch import bench
+
+    monkeypatch.setenv("BENCH_SMOKE", "1")
+    assert bench.main(["--phase", phase, "--device", str(dev)]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["card"].startswith(torch.cuda.get_device_name(dev))
+    for k in flags:
+        assert out[k] is True
+    for k, v in out.items():
+        if k not in flags + ("card", "worlds", "host_cpus"):
+            vals = v if isinstance(v, list) else [v]
+            assert all(np.isfinite(x) and x > 0 for x in vals), (k, v)
+
+
+def test_bench_sw_scores_equal_plain_at_its_shape(dev):
+    """The sw phase at bench.py's full shape (B=4,096, R=128, W=256):
+    every launch is sw_scores_kernel's, and its last scores equal
+    sw_scores_plain exactly."""
+    from vgan_tpu_torch import bench
+    from vgan_tpu_torch.mapper import sw
+
+    sizes = bench.Sizes.of(False)
+    b = bench.Bench(dev, sizes)
+    sw.reset_launches()
+    fields = bench.phase_sw(b)
+    assert sw.LAUNCHES["sw_scores"] == 1 + 3 * sizes.sw_reps
+    args, out = b.sw_call
+    assert [tuple(a.shape) for a in args[:2]] == [(4096, 128), (4096, 256)]
+    assert torch.equal(out, sw.sw_scores_plain(*args))
+    assert 0 < fields["sw_bound_share"] < 1

@@ -20,6 +20,7 @@
         [--phylo tree.tsv] [--node-len N]
     python -m vgan_tpu_torch.cli build-taxon-db <db_dir> <taxon> [out_dir]
     python -m vgan_tpu_torch.cli vcf2fasta <vcf> <fasta> <chromosome>
+    python -m vgan_tpu_torch.cli bench [--phase NAME] [--device cuda|cpu]
     python -m vgan_tpu_torch.cli plot-taxon <prefix> <taxon>
     python -m vgan_tpu_torch.cli plot-detected <prefix>
     python -m vgan_tpu_torch.cli plot-trace <trace.mcmc> [burnin]
@@ -163,13 +164,17 @@ def _dispatch(argv: List[str]) -> int:
                   "[chromosome]")
             return 1
         return add_variants_to_fasta(rest[0], rest[1], rest[2])
+    if cmd == "bench":
+        from .bench import main as bench_main
+
+        return bench_main(rest)
     if cmd in ("plot-taxon", "plot-detected", "plot-trace", "plot-k",
                "plot-tree-posterior", "tree-from-output"):
         return cmd_plot(cmd, rest)
     print(f"unknown subcommand {cmd} (the port runs haplocart, euka, "
           "gam2prof, soibean, keelime, map, duprm, build-db, build-hc-db, "
-          "build-taxon-db, vcf2fasta and the plot commands; bench is the "
-          "JAX package's)", file=sys.stderr)
+          "build-taxon-db, vcf2fasta, bench and the plot commands)",
+          file=sys.stderr)
     return 1
 
 
