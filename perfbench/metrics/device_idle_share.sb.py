@@ -1,0 +1,8 @@
+"""Share (%) of the window in which nothing ran on the card, from the
+profiler's timeline of the soibean samples."""
+
+
+def read(ctx):
+    if ctx.window_s <= 0 or ctx.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.busy_s / ctx.window_s)
