@@ -836,7 +836,7 @@ def phase_e2e(dev, out_dir, clock):
     import numpy as np
 
     from vgan_tpu_torch import cli
-    from vgan_tpu_torch.mapper import batch_map, sw
+    from vgan_tpu_torch.mapper import sw
     from vgan_tpu_torch.pipelines import haplocart_device as hd
     from vgan_tpu_torch.pipelines import haplocart_runner as runner
     from vgan_tpu_torch.utils import profiling
@@ -865,8 +865,7 @@ def phase_e2e(dev, out_dir, clock):
     for i in range(3):  # one warm-up run, two timed
         if os.path.exists(tsv):
             os.remove(tsv)
-        profiling.PROFILER.stages.clear()
-        batch_map.reset_stage_times()
+        profiling.PROFILER.clear()
         sw.gather_score_hash = kernel if i else keeping
         hd.score_packed = scorer if i else keeping_hc
         try:
@@ -880,13 +879,16 @@ def phase_e2e(dev, out_dir, clock):
         if rc != 0:
             raise AssertionError(f"cli haplocart returned {rc}")
         st = profiling.PROFILER.stages["map+score"]
+        mstages = {n: profiling.PROFILER.stages[n].seconds for n in (
+            "mapper.submit", "mapper.collect", "mapper.finalize")}
+        mstages["chunks"] = profiling.PROFILER.stages["mapper.submit"].calls
         runs.append(dict(wall_s=wall, map_score_s=st.seconds,
-                         stages=dict(batch_map.STAGE_TIMES)))
+                         stages=mstages))
         log(f"cli run {i} ({'warm-up' if i == 0 else 'timed'}): "
             f"{wall:.2f} s wall, map+score {st.seconds:.3f} s = "
             f"{N_READS / st.seconds:.0f} reads/s; mapper stages "
             + json.dumps({k: round(v, 4) if isinstance(v, float) else v
-                          for k, v in batch_map.STAGE_TIMES.items()}))
+                          for k, v in mstages.items()}))
     launches = dict(sw.LAUNCHES, **hd.LAUNCHES)
     with open(tsv) as f:
         lines = f.read().splitlines()
@@ -1735,7 +1737,7 @@ def check_euka_scorer(calls, map_score_s, smi):
 def phase_euka(dev, out_dir, clock):
     from vgan_tpu_torch import cli
     from vgan_tpu_torch.infer import abundance_mcmc as am
-    from vgan_tpu_torch.mapper import batch_map, sw
+    from vgan_tpu_torch.mapper import sw
     from vgan_tpu_torch.pipelines import euka as ek
     from vgan_tpu_torch.pipelines.euka_runner import (
         abundance_mcmc_from_result)
@@ -1769,8 +1771,7 @@ def phase_euka(dev, out_dir, clock):
         for f in os.listdir(out_dir):
             if f.startswith("euka_out_"):
                 os.remove(os.path.join(out_dir, f))
-        profiling.PROFILER.stages.clear()
-        batch_map.reset_stage_times()
+        profiling.PROFILER.clear()
         before = dict(sw.LAUNCHES, **am.LAUNCHES, **ek.LAUNCHES)
         am.run_segment = segment if i else keeping
         ek.score_batch = score if i else keeping_score
@@ -1791,8 +1792,11 @@ def phase_euka(dev, out_dir, clock):
         medians = check_euka_outputs(prefix)
         ms = profiling.PROFILER.stages["map+score"].seconds
         mc = profiling.PROFILER.stages["mcmc"].seconds
+        mstages = {n: profiling.PROFILER.stages[n].seconds for n in (
+            "mapper.submit", "mapper.collect", "mapper.finalize")}
+        mstages["chunks"] = profiling.PROFILER.stages["mapper.submit"].calls
         runs.append(dict(wall_s=wall, map_score_s=ms, mcmc_s=mc,
-                         stages=dict(batch_map.STAGE_TIMES)))
+                         stages=mstages))
         log(f"euka run {i} ({'warm-up' if i == 0 else 'timed'}): "
             f"{wall:.2f} s wall, map+score {ms:.3f} s = "
             f"{n_reads / ms:.0f} reads/s, mcmc {mc:.3f} s = "
@@ -1801,7 +1805,7 @@ def phase_euka(dev, out_dir, clock):
             f"launches; medians "
             + json.dumps(medians) + "; mapper stages "
             + json.dumps({k: round(v, 4) if isinstance(v, float) else v
-                          for k, v in batch_map.STAGE_TIMES.items()}))
+                          for k, v in mstages.items()}))
     launches = dict(sw.LAUNCHES, **am.LAUNCHES, **ek.LAUNCHES)
     log(f"euka: detected exactly the planted taxa in all runs; kernel "
         f"launches in the 3 runs: {launches}")
@@ -2112,7 +2116,7 @@ def phase_soibean(dev, out_dir, clock):
             for f in os.listdir(out_dir):
                 if f.startswith("sb_"):
                     os.remove(os.path.join(out_dir, f))
-            profiling.PROFILER.stages.clear()
+            profiling.PROFILER.clear()
             sw.gather_score_hash = kernel if i else keeping_sw
             t0 = time.perf_counter()
             if cli.main(argv) != 0:
@@ -2516,7 +2520,7 @@ def phase_keelime(dev, out_dir, clock):
     try:
         for i in range(3):  # one warm-up run, two timed
             prefix = os.path.join(out_dir, f"kl{i}_")
-            profiling.PROFILER.stages.clear()
+            profiling.PROFILER.clear()
             before = dict(sw.LAUNCHES, **kd.LAUNCHES)
             kd.overlap_best_indexed = indexed if i else keeping
             t0 = time.perf_counter()
@@ -2552,7 +2556,7 @@ def phase_keelime(dev, out_dir, clock):
     launches = dict(sw.LAUNCHES, **kd.LAUNCHES)
     log(f"keelime: kernel launches in the 3 runs: {launches}")
     card = keelime_outputs(os.path.join(out_dir, "kl0_"))
-    profiling.PROFILER.stages.clear()
+    profiling.PROFILER.clear()
     t0 = time.perf_counter()
     if cli.main(argv(os.path.join(out_dir, "klcpu_"), "cpu")) != 0:
         raise AssertionError("cli keelime --device cpu failed")

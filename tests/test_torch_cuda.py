@@ -7,7 +7,8 @@ against the same code on the CPU, on the card; and the multi-process and
 split paths (two HaploCart ranks on the one card, the split scorer and
 chains over [card, card], the HaploCart scorer over dp x tp grids of the
 card) against one process on one card; and the bench's sw and
-device_step phases on the card (vgan_tpu_torch/bench.py). Marked
+device_step phases on the card (vgan_tpu_torch/bench.py); and the
+tracer's spans against the profiler's timeline of the card. Marked
 `cuda`: they skip where torch.cuda.is_available() is false. This file imports neither jax nor
 vgan_tpu, so it also runs where jax is absent:
 
@@ -1816,3 +1817,33 @@ def test_bench_sw_scores_equal_plain_at_its_shape(dev):
     assert [tuple(a.shape) for a in args[:2]] == [(4096, 128), (4096, 256)]
     assert torch.equal(out, sw.sw_scores_plain(*args))
     assert 0 < fields["sw_bound_share"] < 1
+
+
+def test_profiler_spans_hold_their_kernels_on_the_card(dev):
+    """Under the benchmark's profile(activities=[CUDA]) a PROFILER that
+    is not enabled records (the session's flag is set), and a kernel
+    launched and synchronized inside a span lies inside the span on the
+    profiler's timeline (both on time.time_ns's epoch clock)."""
+    from torch.autograd import profiler as autograd_profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    from vgan_tpu_torch.utils import profiling
+
+    prof = profiling.Profiler(enabled=False)
+    x = torch.randn(2048, 2048, device=dev)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        flags = (autograd_profiler._is_profiler_enabled,
+                 torch._C._autograd._profiler_enabled())
+        with prof.span("card.matmul"):
+            x @ x
+            torch.cuda.synchronize(dev)
+    print(f"profiler flags under profile([CUDA]): {flags}")
+    assert flags == (True, True)
+    (s,) = prof.records()
+    kernels = [e for e in p.profiler.kineto_results.events()
+               if str(e.device_type()).endswith("CUDA")]
+    assert kernels
+    for e in kernels:
+        assert s.start_ns <= e.start_ns(), (s, e.name())
+        assert e.start_ns() + e.duration_ns() <= s.end_ns, (s, e.name())

@@ -585,28 +585,31 @@ def bench_mapping(b: Bench):
 
 def bench_realdb_mapping(b: Bench):
     """Steady-state mapping at real-DB scale, best of 3, with the best
-    run's per-stage host budget from batch_map.STAGE_TIMES
+    run's per-stage host budget from the tracer's `mapper.*` spans
     (`bench.py:320-353`). Returns (reads/s, run seconds, stage fields)."""
-    from .mapper import batch_map
+    from .utils.profiling import PROFILER, StageStats, stage_stats
 
     _db, mapper, all_reads, _n = b.realdb()
     mapper.map_reads_table(all_reads[:4096])  # warm
-    runs, stages = [], {}
-    for _ in range(3):
-        batch_map.reset_stage_times()
-        t0 = _clock(b.dev)
-        out = mapper.map_reads_table(all_reads)
-        runs.append(_clock(b.dev) - t0)
-        if runs[-1] == min(runs):
-            stages = dict(batch_map.STAGE_TIMES)
+    runs, best = [], {}
+    with PROFILER.recording():
+        for _ in range(3):
+            n0 = len(PROFILER.records())
+            t0 = _clock(b.dev)
+            out = mapper.map_reads_table(all_reads)
+            runs.append(_clock(b.dev) - t0)
+            if runs[-1] == min(runs):
+                best = stage_stats(PROFILER.records()[n0:])
     dt = min(runs)
     _check(int((out.identity != 0).sum()) == len(all_reads),
            "realdb_mapping: a read did not map")
-    nchunk = max(stages.get("chunks", 0), 1)
+    stage = {k: best.get(f"mapper.{k}", StageStats(k))
+             for k in ("submit", "collect", "finalize")}
+    nchunk = stage["submit"].calls  # a mapper.submit span a chunk
     stage_fields = {
-        "hc_realdb_map_chunks": int(stages.get("chunks", 0)),
-        **{f"hc_realdb_map_{k}_s_per_chunk": stages.get(f"{k}_s", 0.0) / nchunk
-           for k in ("submit", "collect", "finalize")},
+        "hc_realdb_map_chunks": nchunk,
+        **{f"hc_realdb_map_{k}_s_per_chunk": st.seconds / max(nchunk, 1)
+           for k, st in stage.items()},
         "hc_realdb_map_wall_s": dt,
     }
     return len(all_reads) / dt, runs, stage_fields

@@ -1,4 +1,4 @@
-# Port of vgan_tpu/infer/tree_mcmc.py to torch (f64; the MH chain in one CUDA kernel a segment).
+# Port of vgan_tpu/infer/tree_mcmc.py to torch (f64; the MH chain in one CUDA kernel a segment; PROFILER's spans).
 """soibean's tree MCMC: S Metropolis-Hastings steps of B chain rows.
 
 Reimplements `MCMC::run_tree_proportion` (`src/MCMC.cpp:522-1088`),
@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.profiling import PROFILER
 
 F64 = torch.float64
 FREQ_KEYS = ("A", "C", "G", "T", "R", "Y", "M")
@@ -576,6 +577,7 @@ def _mix(*xs) -> int:
     return h & ((1 << 63) - 1)
 
 
+@PROFILER.traced("tree_mcmc.noise")
 def draw_noise(seeds: Sequence[int], i0: int, i1: int, k: int, hops: int,
                device) -> Noise:
     """Noise of iterations [i0, i1) for rows with these seeds, f32 on
@@ -583,7 +585,9 @@ def draw_noise(seeds: Sequence[int], i0: int, i1: int, k: int, hops: int,
     normal uniform per source, and an accept uniform per row. Each
     NOISE_BLOCK-iteration block of a row comes from its own generator
     (seeded from the row's seed, the block and `hops`), so the stream is
-    the same however the iterations are cut into calls."""
+    the same however the iterations are cut into calls. A
+    `tree_mcmc.noise` span; `tree_mcmc.noise_generators` counts the
+    generators it makes."""
     dev = resolve_device(device)
     S = i1 - i0
     out = Noise(
@@ -594,7 +598,9 @@ def draw_noise(seeds: Sequence[int], i0: int, i1: int, k: int, hops: int,
         torch.empty((len(seeds), S), dtype=torch.float32, device=dev),
     )
     nb = NOISE_BLOCK
-    for b in range(i0 // nb, (i1 - 1) // nb + 1 if S > 0 else i0 // nb):
+    blocks = range(i0 // nb, (i1 - 1) // nb + 1 if S > 0 else i0 // nb)
+    PROFILER.count("tree_mcmc.noise_generators", len(blocks) * len(seeds))
+    for b in blocks:
         lo, hi = max(i0, b * nb), min(i1, (b + 1) * nb)
         for r, seed in enumerate(seeds):
             g = torch.Generator(device=dev).manual_seed(_mix(seed, b, hops))
@@ -679,6 +685,7 @@ def _as_data(tree, stats_path_map, stats_counts25, freqs, con,
     return prepare(tree, stats_path_map, stats_counts25, freqs, con, device)
 
 
+@PROFILER.traced("tree_mcmc.sweep")
 def _run_rows(data: ChainData, srcs: np.ndarray, mask: np.ndarray,
               theta0: torch.Tensor, ll0: np.ndarray, seeds: np.ndarray,
               max_iter: int, burn: int, num_paths: int, devices=None):
@@ -689,7 +696,12 @@ def _run_rows(data: ChainData, srcs: np.ndarray, mask: np.ndarray,
     contiguous groups, group j on devices[j] with its own copy of the
     data, every group's segment launched before the next segment (the
     JAX package's chain axis sharded over its mesh). A row's noise is
-    its own, so the split changes no row's stream."""
+    its own, so the split changes no row's stream.
+
+    A `tree_mcmc.sweep` span holding each segment's `tree_mcmc.noise` and
+    `tree_mcmc.launch` and the records' `tree_mcmc.records` (where the
+    host waits for the card); counters `tree_mcmc.row_steps` and
+    `tree_mcmc.record_bytes`."""
     B, K = srcs.shape
     datas = [data]
     if devices is not None and len(devices) > 1 and B % len(devices) == 0:
@@ -708,18 +720,26 @@ def _run_rows(data: ChainData, srcs: np.ndarray, mask: np.ndarray,
             data=d, seeds=seeds[rows], carry=carry, recs=[],
             sd=torch.as_tensor(sd_np, dtype=F64).to(dev),
             mask=torch.as_tensor(mask[rows], dtype=torch.bool).to(dev)))
-    for i0, i1, hops in segment_plan(max_iter + 1, burn, num_paths, per, K):
+    plan = segment_plan(max_iter + 1, burn, num_paths, per, K)
+    PROFILER.count("tree_mcmc.row_steps", B * (max_iter + 1))
+    for i0, i1, hops in plan:
         for run in runs:
             d = run["data"]
             noise = draw_noise(run["seeds"], i0, i1, K, hops, d.device)
-            iters = torch.arange(i0, i1, dtype=torch.int64, device=d.device)
-            run["carry"], rec = run_segment(
-                *run["carry"], run["mask"], iters, run["sd"][i0:i1], noise,
-                d.path_map_t, d.counts25_t, d.tree, d.con, d.freq)
+            with PROFILER.span("tree_mcmc.launch"):
+                iters = torch.arange(i0, i1, dtype=torch.int64,
+                                     device=d.device)
+                run["carry"], rec = run_segment(
+                    *run["carry"], run["mask"], iters, run["sd"][i0:i1],
+                    noise, d.path_map_t, d.counts25_t, d.tree, d.con,
+                    d.freq)
             run["recs"].append(rec)
-    return [np.concatenate([
-        torch.cat([r[i] for r in run["recs"]], dim=1).cpu().numpy()
-        for run in runs]) for i in range(4)]
+    with PROFILER.span("tree_mcmc.records"):
+        out = [np.concatenate([
+            torch.cat([r[i] for r in run["recs"]], dim=1).cpu().numpy()
+            for run in runs]) for i in range(4)]
+    PROFILER.count("tree_mcmc.record_bytes", sum(x.nbytes for x in out))
+    return out
 
 
 def run_tree_mcmc(tree, stats_path_map, stats_counts25, sources, freqs,
@@ -854,27 +874,34 @@ def run_tree_mcmc_checkpointed(tree, stats_path_map, stats_counts25,
                  torch.full((1,), init_loglike, dtype=F64, device=dev))
     mask = torch.ones((1, k), dtype=torch.bool, device=dev)
     last_saved = start
-    for i0, i1, hops in segment_plan(total, burn, num_paths, 1, k,
-                                     start=start, max_len=checkpoint_every):
-        noise = draw_noise([seed], i0, i1, k, hops, dev)
-        iters = torch.arange(i0, i1, dtype=torch.int64, device=dev)
-        carry, rec = run_segment(*carry, mask, iters, sd[i0:i1], noise,
-                                 data.path_map_t, data.counts25_t, data.tree,
-                                 data.con, data.freq)
-        segments.append(tuple(x[0].cpu().numpy() for x in rec))
-        if checkpoint_path and (i1 - last_saved >= checkpoint_every
-                                or i1 >= total):
-            acc = [np.concatenate([sg[i] for sg in segments])
-                   for i in range(4)]
-            np.savez(
-                checkpoint_path, format=CHECKPOINT_FORMAT, seed=int(seed),
-                next_iter=i1,
-                **{n: x.cpu().numpy() for n, x in zip(
-                    ("nodes", "pos", "theta", "ll"), carry)},
-                rec_nodes=acc[0], rec_pos=acc[1], rec_theta=acc[2],
-                rec_ll=acc[3])
-            segments = [tuple(acc)]
-            last_saved = i1
+    with PROFILER.span("tree_mcmc.sweep"):
+        plan = segment_plan(total, burn, num_paths, 1, k, start=start,
+                            max_len=checkpoint_every)
+        PROFILER.count("tree_mcmc.row_steps", total - start)
+        for i0, i1, hops in plan:
+            noise = draw_noise([seed], i0, i1, k, hops, dev)
+            with PROFILER.span("tree_mcmc.launch"):
+                iters = torch.arange(i0, i1, dtype=torch.int64, device=dev)
+                carry, rec = run_segment(*carry, mask, iters, sd[i0:i1], noise,
+                                         data.path_map_t, data.counts25_t,
+                                         data.tree, data.con, data.freq)
+            with PROFILER.span("tree_mcmc.records"):
+                segments.append(tuple(x[0].cpu().numpy() for x in rec))
+            PROFILER.count("tree_mcmc.record_bytes",
+                           sum(x.nbytes for x in segments[-1]))
+            if checkpoint_path and (i1 - last_saved >= checkpoint_every
+                                    or i1 >= total):
+                acc = [np.concatenate([sg[i] for sg in segments])
+                       for i in range(4)]
+                np.savez(
+                    checkpoint_path, format=CHECKPOINT_FORMAT, seed=int(seed),
+                    next_iter=i1,
+                    **{n: x.cpu().numpy() for n, x in zip(
+                        ("nodes", "pos", "theta", "ll"), carry)},
+                    rec_nodes=acc[0], rec_pos=acc[1], rec_theta=acc[2],
+                    rec_ll=acc[3])
+                segments = [tuple(acc)]
+                last_saved = i1
     rn, rp, rt, rl = (np.concatenate([sg[i] for sg in segments])
                       for i in range(4))
     return MCMCTrace(node=rn[burn + 1:], pos=rp[burn + 1:],

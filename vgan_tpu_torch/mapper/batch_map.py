@@ -1,5 +1,6 @@
 # Copied from vgan_tpu/mapper/batch_map.py; imports repointed to this package,
-# the device phase swapped to mapper/sw.py (torch tensors, CUDA kernel).
+# the device phase swapped to mapper/sw.py (torch tensors, CUDA kernel);
+# the module's stage-time sums replaced by PROFILER's mapper.* spans.
 """Fully-vectorized batch mapping path (host side).
 
 The production fast path behind `BatchedMapper.map_reads`: seeding,
@@ -26,6 +27,7 @@ import torch
 
 from ..io import gam
 from ..utils import dna
+from ..utils.profiling import PROFILER
 from .align import FULL_LENGTH_BONUS
 from .index import _path_codes
 
@@ -312,30 +314,12 @@ def gather_and_score(mapper, reads, max_candidates: int = 8,
     return gather_collect(gather_submit(mapper, reads, max_candidates, pad))
 
 
-STAGE_TIMES = {"submit_s": 0.0, "collect_s": 0.0, "finalize_s": 0.0,
-               "chunks": 0}
-"""Per-stage wall-clock accumulator for the streaming mapper (bench
-budget fields, VERDICT r4 #3): submit = host seed+pack+async dispatch,
-collect = device wait + download + dedup/winner-select, finalize =
-native table build. Worker-thread `+=` is GIL-atomic enough for bench
-reporting; reset with reset_stage_times()."""
-
-
-def reset_stage_times() -> None:
-    STAGE_TIMES.update(submit_s=0.0, collect_s=0.0, finalize_s=0.0,
-                       chunks=0)
-
-
 def gather_submit(mapper, reads, max_candidates: int = 8,
                   pad: int = 24) -> Optional[PendingGather]:
-    import time as _t
-
-    t0 = _t.perf_counter()
-    try:
+    """The `mapper.submit` span (host seeding, packing and the async
+    dispatch) of one chunk."""
+    with PROFILER.span("mapper.submit"):
         return _gather_submit(mapper, reads, max_candidates, pad)
-    finally:
-        STAGE_TIMES["submit_s"] += _t.perf_counter() - t0
-        STAGE_TIMES["chunks"] += 1
 
 
 def _gather_submit(mapper, reads, max_candidates: int = 8,
@@ -439,13 +423,10 @@ def _gather_submit(mapper, reads, max_candidates: int = 8,
 
 
 def gather_collect(p: Optional[PendingGather]) -> Optional[BatchResult]:
-    import time as _t
-
-    t0 = _t.perf_counter()
-    try:
+    """The `mapper.collect` span: the wait for the card, the download,
+    dedup and winner-select."""
+    with PROFILER.span("mapper.collect"):
         return _gather_collect(p)
-    finally:
-        STAGE_TIMES["collect_s"] += _t.perf_counter() - t0
 
 
 def _gather_collect(p: Optional[PendingGather]) -> Optional[BatchResult]:
@@ -630,14 +611,10 @@ def finalize_table(mapper, reads, br: Optional[BatchResult],
                    mq_override: Optional[np.ndarray] = None,
                    second_override: Optional[np.ndarray] = None,
                    ) -> "AlignmentTable":
-    import time as _t
-
-    t0 = _t.perf_counter()
-    try:
+    """The `mapper.finalize` span: the native table build."""
+    with PROFILER.span("mapper.finalize"):
         return _finalize_table(mapper, reads, br, sel_override,
                                mq_override, second_override)
-    finally:
-        STAGE_TIMES["finalize_s"] += _t.perf_counter() - t0
 
 
 def _finalize_table(mapper, reads, br: Optional[BatchResult],

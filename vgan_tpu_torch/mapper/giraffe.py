@@ -1,5 +1,6 @@
 # Copied from vgan_tpu/mapper/giraffe.py; imports repointed to this package,
-# candidate scoring swapped to mapper/sw.py, native-library fallbacks removed.
+# candidate scoring swapped to mapper/sw.py, native-library fallbacks removed,
+# map_reads_table traced as PROFILER's mapper.map_table span.
 """Haplotype-constrained read mapper (giraffe-equivalent pipeline).
 
 Stages (SURVEY.md §2.2 "TPU equivalent"):
@@ -41,6 +42,7 @@ from . import minimizer as mz
 from .align import FULL_LENGTH_BONUS
 from .index import MinimizerIndex, _path_codes, _step_offsets
 from ..utils.device import resolve_device
+from ..utils.profiling import PROFILER
 
 
 # stream collect+finalize on a worker thread in map_table_chunks
@@ -521,10 +523,12 @@ class BatchedMapper(Mapper):
         chunked output is identical to the one-shot path)."""
         from . import batch_map
 
-        return batch_map.AlignmentTable.concat(
-            list(self.map_table_chunks(reads, max_candidates, pad, chunk,
-                                       depth))
-        )
+        PROFILER.count("mapper.reads", len(reads))
+        with PROFILER.span("mapper.map_table"):
+            return batch_map.AlignmentTable.concat(
+                list(self.map_table_chunks(reads, max_candidates, pad,
+                                           chunk, depth))
+            )
 
     def map_table_chunks(self, reads, max_candidates: int = 8,
                          pad: int = 24, chunk: int = 4096,
