@@ -10,9 +10,10 @@ and prints no result):
    nvidia-smi; no CUDA device is an error.
 2. build   — the native host library (g++, vgan_tpu_torch/cpp/),
    csrc/sw.cu, csrc/tree_mcmc.cu, csrc/keelime.cu, csrc/abundance_mcmc.cu,
-   csrc/haplocart.cu and csrc/euka.cu (nvcc, sm_90a) from the checkout's
-   sources, and csrc/haplocart.cu's measurement build
-   (-DVGAN_HC_PHASE_CLOCKS), the eight compilers started together; seconds
+   csrc/haplocart.cu, csrc/euka.cu and csrc/patristic.cu (nvcc, sm_90a)
+   from the checkout's sources, and the measurement builds of
+   csrc/haplocart.cu and csrc/euka.cu (-DVGAN_HC_PHASE_CLOCKS,
+   -DVGAN_EUKA_PHASE_CLOCKS), the compilers started together; seconds
    of each build; `cuobjdump -sass` of the SW library, which must show
    Hopper's DPX max instructions (VIMNMX3, VIADDMNMX) in every
    instantiation of both kernels, and whose DP step (the straight-line block holding the most VIMNMX3, one
@@ -123,7 +124,14 @@ and prints no result):
    plain versions run once; at each size timed a step post-burn-in and
    in burn-in beside its bound and the serial floor (the same steps with
    R cut to 32 reads a CTA); the plain version a step on the card over
-   200 steps. Phase 6 runs before phase 5, whose
+   200 steps; every run must launch patristic_series_kernel too. Then
+   that kernel at the benchmark cell's shape (425,000 chain-like states
+   of a source, the 128-leaf tree of seed 7): its series bit-equal to
+   the plain version's and the held host function's, the kernel timed by
+   events and on the device alone beside its bound (6 f64 instructions a
+   leaf term and 2 a state, against 20 bytes a state), the whole wrapper
+   call, the plain version and the held function on the host clock (one
+   line). Phase 6 runs before phase 5, whose
    profiler pass slows every later launch of the process.
 7. keelime — a reference-free world at a mitogenome's scale: a seeded
    random 16,569-bp backbone with four haplotypes (40 variants, 8-bp
@@ -208,7 +216,7 @@ and prints no result):
    each held against its plain version on the card and timed beside its
    bound.
 
-The kernels line lists the eight kernels, each with phase 9's launches
+The kernels line lists the nine kernels, the first eight with phase 9's launches
 added to its count and its row at the bench's shape (`bench_shape`):
 gather_score_hash_kernel's
 launches are those of the HaploCart, soibean, keelime and euka runs
@@ -238,7 +246,8 @@ largest call (no library call computes it; its device time and phase
 split), for euka's scorer at the euka warm-up run's largest call
 (library_ms: the CUDA-graph replay; the other call's ms, the launch
 shape, the phase split and the two 1,000-bp batches' numbers beside
-it).
+it), and for the patristic-distance series at the cell's shape (its
+launches those of the soibean runs; no phase of the bench launches it).
 Every timing line names the card and its power limit. The
 second-to-last lines are the nvidia-smi line and one JSON object
 describing the kernels; the last line is
@@ -307,6 +316,14 @@ SB_ITER, SB_BURNIN, SB_CHAINS = 50000, 7500, 4
 # steps of the post-burn-in walk from the carry; the plain version's
 # time a step and the kernel's over SB_TIMED_STEPS
 SB_CHECK_BURN, SB_CHECK_POST, SB_TIMED_STEPS = 200, 800, 200
+# soibean's patristic-distance series at the benchmark cell's shape: one
+# chain source's 425,000 recorded states (iterations 75,001..500,000) on the
+# 128-leaf tree of seed 7; its bound counts 6 f64 instructions a leaf term
+# (the subtraction, the compare, two additions, the square, the
+# accumulation) and 2 a state, and 20 bytes a state (node, position, value)
+PT_SOURCE = "vgan_tpu_torch/csrc/patristic.cu"
+PT_STATES, PT_LEAVES, PT_TREE_SEED = 425_000, 128, 7
+PT_OPS_PER_TERM, PT_OPS_PER_STATE, PT_BYTES_PER_STATE = 6, 2, 20
 # f64 multiply-adds on an H100 SXM: 67 TFLOP/s in the tensor cores
 # (NVIDIA's data sheet), the largest f64 rate the card has
 F64_FMA_PER_S = 67e12 / 2
@@ -514,8 +531,9 @@ def phase_device():
 
 # ----------------------------------------------------------------- phase 2
 def phase_build():
-    """The seven native libraries and the likelihood step's measurement
-    build, their compilers all started together."""
+    """The eight native libraries and the measurement builds of the
+    likelihood step and euka's scorer, their compilers all started
+    together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from vgan_tpu_torch import _native
@@ -526,6 +544,7 @@ def phase_build():
               ("abundance_mcmc.cu", _native.abundance_mcmc_lib),
               ("haplocart.cu", _native.haplocart_lib),
               ("euka.cu", _native.euka_lib),
+              ("patristic.cu", _native.patristic_lib),
               ("haplocart.cu, phase clocks",
                _native.haplocart_clocks_lib),
               ("euka.cu, phase clocks", _native.euka_clocks_lib))
@@ -2079,6 +2098,7 @@ def check_tree_kernel(dev, call, smi):
 
 def phase_soibean(dev, out_dir, clock):
     from vgan_tpu_torch import cli
+    from vgan_tpu_torch.infer import patristic as pt
     from vgan_tpu_torch.infer import tree_mcmc as tm
     from vgan_tpu_torch.mapper import sw
     from vgan_tpu_torch.utils import profiling
@@ -2110,6 +2130,7 @@ def phase_soibean(dev, out_dir, clock):
     runs = []
     sw.reset_launches()
     tm.reset_launches()
+    pt.reset_launches()
     tm.run_tree_mcmc_ksweep = keeping
     try:
         for i in range(3):  # one warm-up run, two timed
@@ -2142,8 +2163,9 @@ def phase_soibean(dev, out_dir, clock):
     finally:
         tm.run_tree_mcmc_ksweep = ksweep
         sw.gather_score_hash = kernel
-    launches = dict(sw.LAUNCHES, **tm.LAUNCHES)
-    if launches["tree_mcmc_segment"] < 1 or launches["gather_score_hash"] < 1:
+    launches = dict(sw.LAUNCHES, **tm.LAUNCHES, **pt.LAUNCHES)
+    if min(launches["tree_mcmc_segment"], launches["gather_score_hash"],
+           launches["patristic_series"]) < 1:
         raise AssertionError(f"soibean runs launched {launches}")
     log(f"soibean: signature paths = planted {planted} and the k=3 best "
         f"chain on them in all runs; kernel launches in the 3 runs: "
@@ -2162,10 +2184,88 @@ def phase_soibean(dev, out_dir, clock):
         f"{', '.join(f'{x:.0f}' for x in iters)} (the sampler alone "
         f"{', '.join(f'{x:.0f}' for x in sampler)}) on {smi}")
     return dict(launches=launches["tree_mcmc_segment"],
-                sw_launches=launches["gather_score_hash"], runs=runs,
+                sw_launches=launches["gather_score_hash"],
+                patristic_launches=launches["patristic_series"], runs=runs,
                 kernel=tree_kernel, sw=sb_sw, reads_per_s=e2e,
                 mcmc_iters_per_s=iters, sampler_iters_per_s=sampler,
                 ksweep_call=calls[-1][0])
+
+
+def check_patristic(dev, smi):
+    """patristic_series_kernel at the benchmark cell's shape (PT_STATES
+    chain-like states, PT_LEAVES leaves): the wrapper's series bit-equal
+    to the plain version's; the kernel alone timed by events and on the
+    device alone beside its bound, the whole wrapper call (upload, kernel,
+    download) and the plain version and the held host function (which
+    rebuilds the tables) on the host clock. One line."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from vgan_tpu_torch._native import patristic_lib
+    from vgan_tpu_torch.bench import random_tree
+    from vgan_tpu_torch.infer import diagnostics as dg
+    from vgan_tpu_torch.infer import patristic as pt
+    from vgan_tpu_torch.utils.newick import parse_newick
+
+    tree = parse_newick(random_tree(PT_LEAVES, PT_TREE_SEED)[0])
+    rng = np.random.default_rng(PT_TREE_SEED)
+    runs = rng.integers(0, tree.n_nodes, size=PT_STATES // 50 + 1)
+    nodes = np.repeat(runs, 50)[:PT_STATES].astype(np.int32)
+    pos = rng.random(PT_STATES)
+    tables = pt.patristic_tables(tree)
+
+    def host_s(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    pt.patristic_distance_series(tables, nodes, pos, dev)  # warm-up
+    got, call_s = host_s(
+        lambda: pt.patristic_distance_series(tables, nodes, pos, dev))
+    plain, plain_s = host_s(
+        lambda: pt.patristic_series_plain(tables, nodes, pos))
+    held, held_s = host_s(lambda: dg.patristic_distance_series(tree, nodes,
+                                                               pos))
+    if got.tobytes() != plain.tobytes() or got.tobytes() != held.tobytes():
+        raise AssertionError("patristic_series_kernel: the series differs "
+                             "from the plain version's bytes")
+    dn, dl, dist = tables.on(dev)
+    nodes_t = torch.from_numpy(nodes).to(dev)
+    pos_t = torch.from_numpy(pos).to(dev)
+    out = torch.empty(PT_STATES, dtype=torch.float64, device=dev)
+    lib = patristic_lib()
+    args = [ctypes.c_void_p(t.data_ptr())
+            for t in (dn, dl, dist, nodes_t, pos_t)]
+
+    def launch():
+        rc = lib.patristic_series_launch(
+            *args, PT_LEAVES, PT_STATES, ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc != 0:
+            raise RuntimeError(f"patristic_series_launch: CUDA error {rc}")
+
+    ms = cuda_ms(launch, reps=50)
+    dev_ms = queued_ms(launch, 50)
+    if out.cpu().numpy().tobytes() != plain.tobytes():
+        raise AssertionError("patristic_series_kernel: a timed launch "
+                             "differs from the plain version")
+    ops = PT_STATES * (PT_OPS_PER_TERM * PT_LEAVES + PT_OPS_PER_STATE)
+    bms, by = f64_bound_ms(ops, PT_BYTES_PER_STATE * PT_STATES)
+    dev_txt = ("device time not measured" if dev_ms is None else
+               f"on the device alone {dev_ms:.4f} ms = "
+               f"{100 * bms / dev_ms:.1f} %")
+    log(f"patristic_series_kernel ({PT_STATES} states, {PT_LEAVES} leaves): "
+        f"bit-equal to the plain version; kernel {ms:.4f} ms "
+        f"({100 * bms / ms:.1f} % of the {bms:.4f} ms bound, {by}-bound; "
+        f"{dev_txt}); the wrapper call {1e3 * call_s:.2f} ms (upload, "
+        f"kernel, download); plain {1e3 * plain_s:.1f} ms; the held host "
+        f"function {1e3 * held_s:.1f} ms; on {smi}")
+    return dict(ms=ms, device_ms=dev_ms, call_ms=1e3 * call_s,
+                plain_ms=1e3 * plain_s, held_ms=1e3 * held_s, bound_ms=bms,
+                bound_by=by, states=PT_STATES, leaves=PT_LEAVES,
+                max_abs_err=0.0)
 
 
 # ----------------------------------------------------------------- phase 7
@@ -3187,6 +3287,7 @@ def main() -> int:
             f"reads/s (map+score, {N_READS} reads, {N_HAPS} paths) on {smi}")
         with tempfile.TemporaryDirectory(prefix="vgan_smoke_soibean_") as tmp:
             sb = phase_soibean(dev, tmp, clock)
+        sb["patristic"] = check_patristic(dev, smi)
         with tempfile.TemporaryDirectory(prefix="vgan_smoke_keelime_") as tmp:
             kl = phase_keelime(dev, tmp, clock)
         t8 = time.perf_counter()
@@ -3221,7 +3322,7 @@ def main() -> int:
         soibean_mcmc_iters_per_s=sb["mcmc_iters_per_s"],
         soibean_sampler_iters_per_s=sb["sampler_iters_per_s"],
         soibean_runs=sb["runs"], soibean_tree_kernel=sb["kernel"],
-        soibean_sw_calls=sb["sw"],
+        soibean_sw_calls=sb["sw"], soibean_patristic=sb["patristic"],
         keelime_e2e_reads_per_s=kl["reads_per_s"], keelime_runs=kl["runs"],
         keelime_cpu_run_s=kl["cpu_run_s"],
         keelime_cpu_stages_s=kl["cpu_stages_s"],
@@ -3255,6 +3356,7 @@ def main() -> int:
     t_warp = kl["find_overlaps"]["warp"]
     t_block = kl["block_merge"]["block"]
     t_mito = kl["cluster_sweep"]
+    t_pt = sb["patristic"]
     log(f"smoke total {time.perf_counter() - START:.0f} s on {smi}")
     print(smi)
     print(json.dumps({"kernels": [{
@@ -3422,6 +3524,23 @@ def main() -> int:
             "bound_by", "config", "phase_split")}
            for key, src in (("long_1000bp", "long"),
                             ("long_1000bp_both_orientations", "long_both"))},
+    }, {
+        "name": "patristic_series_kernel",
+        "route": "cuda",
+        "source": PT_SOURCE,
+        "replaces": None,
+        "launches": sb["patristic_launches"],
+        "max_abs_err": t_pt["max_abs_err"],
+        "ms": t_pt["ms"],
+        "plain_ms": t_pt["plain_ms"],
+        "bound_ms": t_pt["bound_ms"],
+        "bound_by": t_pt["bound_by"],
+        "library_ms": None,
+        "device_ms": t_pt["device_ms"],
+        "call_ms": t_pt["call_ms"],
+        "held_ms": t_pt["held_ms"],
+        "states": t_pt["states"],
+        "leaves": t_pt["leaves"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -179,13 +179,13 @@ def test_import_changes_no_global_state():
 
 def test_native_sources_lie_in_the_port(monkeypatch):
     """Every source _native compiles (the host library's C++ and the
-    six CUDA files) lies under vgan_tpu_torch/, and the host library
+    seven CUDA files) lies under vgan_tpu_torch/, and the host library
     is built from exactly the C++ list."""
     from vgan_tpu_torch import _native
 
     cuda = [_native.SW_SRC, _native.TREE_MCMC_SRC, _native.KEELIME_SRC,
             _native.ABUNDANCE_MCMC_SRC, _native.HAPLOCART_SRC,
-            _native.EUKA_SRC]
+            _native.EUKA_SRC, _native.PATRISTIC_SRC]
     host = [os.path.join(_native.CPP_DIR, s) for s in _native.HOST_SRCS]
     for src in host + cuda:
         assert os.path.isfile(src), src

@@ -9,7 +9,8 @@
   `csrc/tree_mcmc.cu` (soibean's tree MCMC), on `csrc/keelime.cu`
   (keelime's batched overlap scans), on `csrc/abundance_mcmc.cu` (euka's
   abundance chain), on `csrc/haplocart.cu` (HaploCart's likelihood
-  step) and on `csrc/euka.cu` (euka's per-base scorer), each for
+  step), on `csrc/euka.cu` (euka's per-base scorer) and on
+  `csrc/patristic.cu` (soibean's patristic-distance series), each for
   sm_90a, a plain C interface loaded with ctypes.
 
 Both land in `_build/` beside this file (gitignored), named by a hash
@@ -46,6 +47,7 @@ KEELIME_SRC = os.path.join(_PKG_DIR, "csrc", "keelime.cu")
 ABUNDANCE_MCMC_SRC = os.path.join(_PKG_DIR, "csrc", "abundance_mcmc.cu")
 HAPLOCART_SRC = os.path.join(_PKG_DIR, "csrc", "haplocart.cu")
 EUKA_SRC = os.path.join(_PKG_DIR, "csrc", "euka.cu")
+PATRISTIC_SRC = os.path.join(_PKG_DIR, "csrc", "patristic.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -253,6 +255,14 @@ EUKA_SCORE_ARGTYPES = [
 """The argument types of euka_score_launch."""
 EUKA_CONFIG_ARGTYPES = [_I64, _I32, _VP]  # B, L, out int32[11]
 """The argument types of euka_score_config."""
+PATRISTIC_ARGTYPES = [
+    _VP, _VP, _VP,             # dn, dl [nodes, leaves], dist [nodes] f64
+    _VP, _VP,                  # nodes [S] int32, pos [S] f64
+    _I32, _I64,                # n_leaves, S
+    _VP,                       # out [S] f64
+    _VP,                       # stream
+]
+"""The argument types of patristic_series_launch."""
 
 
 def _typed_lib(key: str, name: str, src: str, fn: str,
@@ -352,3 +362,11 @@ def euka_lib() -> ctypes.CDLL:
         lib = euka_build("vgan_euka", [])
         _loaded["euka"] = lib
     return lib
+
+
+def patristic_lib() -> ctypes.CDLL:
+    """The CUDA patristic-distance series kernel (csrc/patristic.cu),
+    built with nvcc for sm_90a on first use, with its C entry point
+    typed."""
+    return _typed_lib("patristic", "vgan_patristic", PATRISTIC_SRC,
+                      "patristic_series_launch", PATRISTIC_ARGTYPES)

@@ -1,4 +1,4 @@
-# Port of vgan_tpu/pipelines/soibean_runner.py: the host logic copied, the chains given a device (or a list of them, the mesh's chain split), traced by PROFILER's spans.
+# Port of vgan_tpu/pipelines/soibean_runner.py: the host logic copied, the chains given a device (or a list of them, the mesh's chain split), the patristic-distance series on the card, traced by PROFILER's spans.
 """soibean end to end: map -> stats -> chains -> outputs.
 
 Output files mirror the reference exactly (`src/soibean.cpp:745-940`,
@@ -16,8 +16,10 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..infer import diagnostics as dg
+from ..infer import patristic as pt
 from ..infer import tree_mcmc as tm
 from ..infer.tree_mcmc import MCMCTrace
 from ..utils.newick import Tree
@@ -70,10 +72,17 @@ def process_chain(
     chain: int,
     write_files: bool = True,
     write_shared: bool = True,
+    device=None,
 ) -> ChainSummary:
     """processMCMCiterations equivalent (`src/MCMC.cpp:23-147`). A
     `soibean.chain` span; each source's steps are `summaries.*` spans,
-    the files a `soibean.write` span."""
+    the files a `soibean.write` span.
+
+    device: where a source's patristic-distance series is computed. A
+    CUDA device runs infer/patristic's kernel on the tree's cached
+    tables; None or the CPU the held host function, as the JAX package
+    does. Both give the same bits."""
+    on_card = device is not None and torch.device(device).type != "cpu"
     est_lines = []
     branch_lines = []
     names: List[str] = []
@@ -94,7 +103,12 @@ def process_chain(
             ep = dg.effective_sample_size(pos)
         with PROFILER.span("summaries.patristic"):
             # branch-level ESS from the patristic-distance series
-            euc = dg.patristic_distance_series(tree, trace.node[:, s], pos)
+            if on_card:
+                euc = pt.patristic_distance_series(
+                    pt.patristic_tables(tree), trace.node[:, s], pos, device)
+            else:
+                euc = dg.patristic_distance_series(tree, trace.node[:, s],
+                                                   pos)
             ed = dg.effective_sample_size(euc)
         with PROFILER.span("summaries.quantiles"):
             st, sp = np.sort(theta), np.sort(pos)
@@ -364,7 +378,8 @@ def run_soibean_inference(
                 local_summaries.append((
                     chain,
                     process_chain(trace, tree, k, out_prefix, chain,
-                                  write_files, write_shared=(nproc == 1)),
+                                  write_files, write_shared=(nproc == 1),
+                                  device=device),
                 ))
             if nproc > 1:
                 gathered = multihost.allgather_objects(local_summaries)
